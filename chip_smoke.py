@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
   device       the card's name and power limit (nvidia-smi), torch's name
-  build        nvcc-builds both domain-map kernels from csrc/, in parallel
+  build        nvcc-builds the two domain-map kernels and tri_attn from
+               their csrc/ directories, one nvcc each, all in parallel
   kernels      every domain: the map kernel against its plain torch version
                at λ in [0, 2^22), near 2^31 and near 5e8, and the membership
                kernel on a box of about 2^22 cells — exact equality
@@ -18,6 +19,20 @@ Phases, each printing one JSON line:
                kernels' median times (CUDA events) beside their bounds
   evaluate     a heterogeneous EvaluationService batch on the card, held
                against the port's own CPU path and its binary frame
+  attention    the tri_attn kernel in both grid modes against its plain
+               version (tests/test_kernels_tri_attn.py's sweep, GQA), mapped
+               bit-identical to BB, its device-side λ → (i, j) map exact for
+               every λ < T(65535), a gradient check, and at the LM path's
+               shape its median time beside its bound, the plain version's
+               and scaled_dot_product_attention's (the yardstick only)
+  lm_forward   yi-6b at full width (bf16, random weights from a seeded
+               torch.Generator), tokens (1, 4096): forward and lm_loss with
+               attn_impl pallas_mapped, pallas_bb and xla; mapped logits
+               bit-identical to BB, both held against xla; 32 tri_attn
+               launches per kernel forward
+  lm_generate  engine.generate at full width, batch 4, prompt 512, 32 greedy
+               tokens; prefill and decode_step held against forward; then
+               the LM demo entry point (repro_torch.launch.serve --arch yi-6b)
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check raises and the script exits non-zero; without a CUDA device it
@@ -25,8 +40,11 @@ exits 2 and prints no result.  Nothing here imports JAX or ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -36,9 +54,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM device-memory rate (NVIDIA data sheet) — the kernels' bound is
-#: their output bytes written once at this rate
+#: H100 SXM device-memory rate and dense bf16 tensor-core rate (NVIDIA data
+#: sheet): a kernel's bound is the larger of its bytes (each input read once,
+#: each output written once) at the one and its operations at the other
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 N_PAPER = 500_000_000          # benchmarks/block_dense.py:23
 CHUNK = 1 << 26                # λ per plain-version chunk (int64 temps fit)
 REPS = 10                      # timed runs per kernel (median reported)
@@ -47,6 +67,44 @@ FRACTAL_LEVELS = {"gasket2d": 15, "carpet2d": 9, "sierpinski3d": 10,
                   "menger3d": 6}
 #: about 2^22 cells per box, by dimension
 SMALL_BOX = {2: (2048, 2048), 3: (161, 161, 161), 4: (45,) * 4, 5: (21,) * 5}
+#: tests/test_kernels_tri_attn.py's cases as (B, H, Hk, S, D, block), plus
+#: GQA ones; tolerances are that test's (3e-5 fp32, 3e-2 bf16)
+ATTN_CASES = [(1, 1, 1, 128, 64, 32), (1, 2, 2, 256, 64, 64),
+              (2, 1, 1, 128, 128, 32), (1, 1, 1, 256, 32, 128),
+              (2, 2, 2, 64, 16, 16), (1, 4, 2, 128, 32, 32),
+              (2, 8, 2, 512, 128, 128)]
+ATTN_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+#: the LM path's attention: yi-6b's heads at S = 4096, block 128
+ATTN_MAIN = (1, 32, 4, 4096, 128, 128)
+#: bf16 at that shape, rows S/2 and on: max |kernel - ref| over the row's
+#: max |ref|.  Both compute in fp32 and round o to bf16, so they differ by
+#: at most one bf16 ulp, 2^-7 of the row's max (7.8e-3) at worst
+LATE_ROW_RTOL = 1e-2
+NB_MAP = 65535                 # the λ map is held exact for λ < T(NB_MAP)
+LM_ARCH = "yi-6b"
+LM_SEQ = 4096
+LM_LAUNCHES = 32               # one tri_attn launch per layer per forward
+#: kernel vs plain (xla) forward, bf16 at full width.  Both compute the
+#: attention in fp32 and round o to bf16 once, but in other orders, so o
+#: differs by about one bf16 ulp here and there, and 32 layers carry that to
+#: the logits: max |Δ logit| was 1.5e-2 of max |logit| on an H100.  The gate
+#: is twice that.  A control run proves the gate can fail: the kernel
+#: forward with one fault of the kind a combine could make (rows S/2 and on
+#: lose their j = 0 partial) must land above it.
+FWD_LOGIT_RTOL = 3e-2
+#: CE and top-1 against xla are the scoring entry point's (lm_loss) own
+#: outputs, so they stay gates, though random weights and labels keep CE near
+#: ln(vocab) whatever attention returns: the mean over 4096 positions agrees
+#: to 1e-2 relative, and top-1 flips only where the two best logits are
+#: within the bf16 noise of each other, so 95% of positions agree.
+CE_RTOL = 1e-2
+TOP1_MIN = 0.95
+#: prefill / decode_step against forward ("xla"), bf16 at full width: the
+#: same math over other product shapes (a cache of 544 rows against 512,
+#: batch rows 4 against 2052) rounds to bf16 at other places; 32 layers
+#: carry that to the logits.  Bound: max |Δ logit| <= 5e-2 · max |logit|.
+LOGIT_RTOL = 5e-2
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
 
 
 def emit(obj: dict) -> None:
@@ -63,13 +121,17 @@ class Smoke:
         import torch
 
         from repro_torch.core.domains import DOMAINS
+        from repro_torch.kernels import build
         from repro_torch.kernels.domain_map import kernel, ops
+        from repro_torch.kernels.tri_attn import kernel as attn_kernel
 
         self.torch, self.K, self.ops, self.DOMAINS = torch, kernel, ops, DOMAINS
+        self.build_mod, self.AK = build, attn_kernel
         self.max_err = {"map_kernel": 0, "membership_kernel": 0}
         self.launches = {}
         self.totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
                        for k in self.max_err}
+        self.attn_row = {}
 
     # -- helpers -------------------------------------------------------------
     def sync(self):
@@ -104,7 +166,13 @@ class Smoke:
 
     def counts(self) -> dict:
         return {"map_kernel": self.K.MAP_LAUNCHES,
-                "membership_kernel": self.K.MEMBERSHIP_LAUNCHES}
+                "membership_kernel": self.K.MEMBERSHIP_LAUNCHES,
+                "tri_attn": self.AK.ATTN_LAUNCHES}
+
+    def reset_counts(self) -> None:
+        """Every kernel's launch count to 0, just before a main path."""
+        self.K.reset_launch_counts()
+        self.AK.reset_launch_counts()
 
     # -- phase 1 -------------------------------------------------------------
     def device(self) -> str:
@@ -125,11 +193,17 @@ class Smoke:
     # -- phase 2 -------------------------------------------------------------
     def build(self) -> None:
         t0 = time.perf_counter()
-        paths = self.K.build_kernels()
+        paths = self.build_mod.build()          # every registered library
         dt = time.perf_counter() - t0
-        ptxas = {name: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                 for name, log in self.K.BUILD_LOG.items()}
+        ptxas = {}
+        for name, log in self.build_mod.BUILD_LOG.items():
+            regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+            spills = [int(m) for m in
+                      re.findall(r"(\d+) bytes spill stores", log)]
+            ptxas[name] = {"kernels": len(regs),
+                           "max_registers": max(regs, default=0),
+                           "kernels_spilling": sum(1 for x in spills if x),
+                           "max_spill_store_bytes": max(spills, default=0)}
         emit({"phase": "build", "seconds": dt,
               "libraries": {k: str(p.relative_to(ROOT))
                             for k, p in paths.items()},
@@ -326,7 +400,7 @@ class Smoke:
              "extent": [128, 128, 128]},
         ]
         ev = EvaluationService(compile_cache=CompileCache(max_entries=64))
-        self.K.reset_launch_counts()
+        self.reset_counts()
         t0 = time.perf_counter()
         cold, meta = ev.evaluate_batch(queries)
         cold_s = time.perf_counter() - t0
@@ -337,8 +411,8 @@ class Smoke:
                                        binary=True)
         self.sync()
         self.launches = self.counts()
-        for k, v in self.launches.items():
-            check(v > 0, f"evaluate never launched {k}")
+        for k in ("map_kernel", "membership_kernel"):
+            check(self.launches[k] > 0, f"evaluate never launched {k}")
 
         check(meta == meta2, "repeat batch changed its grouping")
         check(all(r["executable"] == "hit" for r in warm),
@@ -372,12 +446,421 @@ class Smoke:
               "frame_bytes": len(frame), "launches": self.launches,
               "stats": ev.stats_dict()})
 
+    # -- phase 6 -------------------------------------------------------------
+    def _attn_inputs(self, b, h, hk, s, d, dtype, gen):
+        torch = self.torch
+        q = torch.randn((b, h, s, d), generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        k = torch.randn((b, hk, s, d), generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        v = torch.randn((b, hk, s, d), generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        return q, k, v
+
+    @staticmethod
+    def _attn_bound_ms(b, h, hk, s, d, itemsize) -> tuple[float, dict]:
+        """The least time for causal attention: its products (4·D flop for
+        each of the S(S+1)/2 (query, key) pairs per (b, h)) at the bf16 rate,
+        against q, k, v read once and o written once at the memory rate."""
+        flop = b * h * 4 * d * (s * (s + 1) // 2)
+        nbytes = (2 * b * h + 2 * b * hk) * s * d * itemsize
+        t_ops = flop / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), {
+            "flop": flop, "bytes": nbytes, "ops_ms": t_ops,
+            "bytes_ms": t_bytes,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def _attn_main_fp32(self, gen, causal_attention, causal_attention_ref):
+        """The LM path's shape in fp32, where the kernel and both plain
+        versions agree to 3e-5 on every row: the 32-partial combines of the
+        deep rows are held as tightly as the sweep's short ones."""
+        torch, AK = self.torch, self.AK
+        b, h, hk, s, d, blk = ATTN_MAIN
+        q, k, v = self._attn_inputs(b, h, hk, s, d, torch.float32, gen)
+        got = {mode: causal_attention(q, k, v, blk, blk, mode)
+               for mode in ("mapped", "bounding_box")}
+        self.sync()
+        check(torch.equal(got["mapped"], got["bounding_box"]),
+              "main shape fp32: mapped and BB outputs differ")
+        errs = {}
+        for what, fn in (
+                ("causal_attention_ref", lambda: causal_attention_ref(
+                    q, k.repeat_interleave(h // hk, 1),
+                    v.repeat_interleave(h // hk, 1))),
+                ("attention_pairs_plain",
+                 lambda: AK.attention_pairs_plain(q, k, v, blk))):
+            want = fn()
+            diff = (got["mapped"] - want).abs()
+            errs[what] = float(diff.max())
+            errs[what + "_rows_ge_half"] = float(diff[:, :, s // 2:].max())
+            check(errs[what] < ATTN_TOL["float32"],
+                  f"main shape fp32: kernel vs {what} max abs err "
+                  f"{errs[what]} >= {ATTN_TOL['float32']}")
+            del want, diff
+        return errs
+
+    def _attn_split(self, gen, causal_attention) -> list:
+        """B·H split into several pair launches under a lowered
+        ``WORKSPACE_CAP_BYTES`` (the last group short): bit-identical to one
+        launch, and ceil(B·H / group) launches per call."""
+        torch, AK = self.torch, self.AK
+        rows = []
+        for (b, h, hk, s, d, blk), dname, group in (
+                (ATTN_CASES[-1], "float32", 3), (ATTN_MAIN, "bfloat16", 5)):
+            dtype = getattr(torch, dname)
+            q, k, v = self._attn_inputs(b, h, hk, s, d, dtype, gen)
+            check(AK.bh_group(b * h, s, d, blk) == b * h,
+                  f"{(b, h, s, d, blk)} splits under the default cap")
+            whole = causal_attention(q, k, v, blk, blk, "mapped")
+            cap = AK.WORKSPACE_CAP_BYTES
+            AK.WORKSPACE_CAP_BYTES = group * (
+                AK.tri_grid_size(s // blk) * blk * (d + 2) * 4)
+            try:
+                check(AK.bh_group(b * h, s, d, blk) == group,
+                      "the lowered cap gives another group")
+                for mode in ("mapped", "bounding_box"):
+                    n0 = AK.ATTN_LAUNCHES
+                    out = causal_attention(q, k, v, blk, blk, mode)
+                    n = AK.ATTN_LAUNCHES - n0
+                    self.sync()
+                    want_n = -(-(b * h) // group)
+                    check(n == want_n, f"split {mode}: {n} launches, want "
+                          f"{want_n}")
+                    check(torch.equal(out, whole),
+                          f"split {mode} {(b, h, s, d, blk)} {dname}: output"
+                          f" differs from one launch")
+            finally:
+                AK.WORKSPACE_CAP_BYTES = cap
+            rows.append({"shape": [b, h, hk, s, d, blk], "dtype": dname,
+                         "group": group, "launches": want_n,
+                         "equal_to_one_launch": True})
+        return rows
+
+    def attention(self) -> None:
+        torch, AK = self.torch, self.AK
+        from repro_torch.kernels.tri_attn.ops import causal_attention
+        from repro_torch.kernels.tri_attn.ref import causal_attention_ref
+
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        worst = {}
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            for b, h, hk, s, d, blk in ATTN_CASES:
+                q, k, v = self._attn_inputs(b, h, hk, s, d, dtype, gen)
+                g = h // hk
+                want = causal_attention_ref(q, k.repeat_interleave(g, 1),
+                                            v.repeat_interleave(g, 1))
+                plain = AK.attention_pairs_plain(q, k, v, blk)
+                outs = {mode: causal_attention(q, k, v, blk, blk, mode)
+                        for mode in ("mapped", "bounding_box")}
+                self.sync()
+                check(torch.equal(outs["mapped"], outs["bounding_box"]),
+                      f"{dname} {(b, h, hk, s, d, blk)}: mapped and BB "
+                      f"outputs differ")
+                for other, what in ((want, "causal_attention_ref"),
+                                    (plain, "attention_pairs_plain")):
+                    err = float((outs["mapped"].float() - other.float())
+                                .abs().max())
+                    worst[dname] = max(worst.get(dname, 0.0), err)
+                    check(err < ATTN_TOL[dname],
+                          f"{dname} {(b, h, hk, s, d, blk)}: kernel vs {what}"
+                          f" max abs err {err} >= {ATTN_TOL[dname]}")
+        # the device-side λ -> (i, j) map, exact for every λ < T(NB_MAP)
+        total = AK.tri_grid_size(NB_MAP)
+        step = 1 << 27
+        for lo in range(0, total, step):
+            n = min(step, total - lo)
+            i, j = AK.lam_to_ij_device(lo, n)
+            ei, ej = AK.lam_to_ij(torch.arange(lo, lo + n, device="cuda"))
+            check(torch.equal(i.to(torch.int64), ei)
+                  and torch.equal(j.to(torch.int64), ej),
+                  f"device λ map differs from int64 torch in [{lo}, {lo + n})")
+            del i, j, ei, ej
+        # gradients through the autograd.Function (backward: the oracle)
+        q, k, v = self._attn_inputs(1, 4, 2, 128, 32, torch.float32, gen)
+        w = torch.randn(q.shape, generator=gen, device="cuda")
+        qs = [t.clone().requires_grad_() for t in (q, k, v)]
+        (causal_attention(*qs, 32, 32, "mapped") * w).sum().backward()
+        rs = [t.clone().requires_grad_() for t in (q, k, v)]
+        (causal_attention_ref(rs[0], rs[1].repeat_interleave(2, 1),
+                              rs[2].repeat_interleave(2, 1)) * w).sum() \
+            .backward()
+        grad_err = max(float((a.grad - r.grad).abs().max())
+                       for a, r in zip(qs, rs))
+        check(grad_err < 1e-5, f"tri_attn gradients differ by {grad_err}")
+
+        # the LM path's shape: times beside the bound
+        b, h, hk, s, d, blk = ATTN_MAIN
+        q, k, v = self._attn_inputs(b, h, hk, s, d, torch.bfloat16, gen)
+        kr, vr = k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1)
+        want = causal_attention_ref(q, kr, vr)
+        outs, ms = {}, {}
+        for mode in ("mapped", "bounding_box"):
+            outs[mode] = causal_attention(q, k, v, blk, blk, mode)
+            ms[mode] = self.time_ms(
+                lambda m=mode: causal_attention(q, k, v, blk, blk, m))
+        self.sync()
+        check(torch.equal(outs["mapped"], outs["bounding_box"]),
+              "main shape: mapped and BB outputs differ")
+        err = float((outs["mapped"].float() - want.float()).abs().max())
+        check(err < ATTN_TOL["bfloat16"],
+              f"main shape: kernel vs causal_attention_ref {err}")
+        # |o| shrinks as a row attends over more keys, so the absolute bound
+        # says little deep in the sequence: hold the late rows (the long
+        # combines) to their own scale as well
+        half = s // 2
+        dev = (outs["mapped"][:, :, half:].float()
+               - want[:, :, half:].float()).abs().amax(-1)
+        row_max = want[:, :, half:].float().abs().amax(-1)
+        late_rel = float((dev / row_max).max())
+        check(late_rel < LATE_ROW_RTOL,
+              f"main shape: rows >= {half}, kernel vs causal_attention_ref "
+              f"{late_rel} of the row's max |o|")
+        del outs, want, dev, row_max
+        fp32_errs = self._attn_main_fp32(gen, causal_attention,
+                                         causal_attention_ref)
+        split = self._attn_split(gen, causal_attention)
+        plain_ms = self.time_ms(lambda: causal_attention_ref(q, kr, vr),
+                                reps=3)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = self.time_ms(
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        bound_ms, bound = self._attn_bound_ms(b, h, hk, s, d, 2)
+        nb = s // blk
+        blocks = {"mapped": b * h * AK.tri_grid_size(nb),
+                  "bounding_box": b * h * nb * nb}
+        for mode in ("mapped", "bounding_box"):
+            emit({"phase": "attention", "card": self.card, "mode": mode,
+                  "shape": {"B": b, "H": h, "Hk": hk, "S": s, "D": d,
+                            "block": blk, "dtype": "bfloat16"},
+                  "ms": ms[mode], "blocks": blocks[mode],
+                  "bound_ms": bound_ms, **bound, "plain_ms": plain_ms,
+                  "library_ms": library_ms, "x_bound": ms[mode] / bound_ms})
+        self.attn_row = {"ms": ms["mapped"], "bb_ms": ms["bounding_box"],
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": bound_ms,
+                         "bound_by": bound["bound_by"], "max_abs_err": err}
+        emit({"phase": "attention", "card": self.card,
+              "cases": len(ATTN_CASES) * 2, "max_abs_err": worst,
+              "main_bf16_late_rows_rel": late_rel,
+              "late_row_rtol": LATE_ROW_RTOL, "main_fp32": fp32_errs,
+              "bh_split": split,
+              "mapped_equals_bb": True, "lam_map_exact_below": total,
+              "grad_max_abs_err": grad_err,
+              "bb_over_mapped": ms["bounding_box"] / ms["mapped"]})
+
+    # -- phase 7 -------------------------------------------------------------
+    def lm_forward(self) -> None:
+        import numpy as np
+
+        torch, AK = self.torch, self.AK
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import count_params
+        from repro_torch.train.train_step import lm_loss
+
+        torch.cuda.empty_cache()
+        cfg = get_config(LM_ARCH)
+        t0 = time.perf_counter()
+        self.lm_params = T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        self.sync()
+        init_s = time.perf_counter() - t0
+        params = self.lm_params
+        n_params = count_params(params)
+        check(abs(n_params - 6.06e9) < 0.01e9, f"{n_params} parameters")
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (1, LM_SEQ), dtype=np.int64)).cuda()
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+        T.forward(params, cfg, tokens[:, :256])      # warm-up (cuBLAS etc.)
+        self.sync()
+
+        self.reset_counts()
+        rows, logits = {}, {}
+        for impl in ("pallas_mapped", "pallas_bb", "xla"):
+            c = cfg.replace(attn_impl=impl)
+            n0 = AK.ATTN_LAUNCHES
+            t0 = time.perf_counter()
+            out = T.forward(params, c, tokens)
+            self.sync()
+            fwd_s = time.perf_counter() - t0
+            n1 = AK.ATTN_LAUNCHES
+            t0 = time.perf_counter()
+            loss, metrics = lm_loss(params, c, batch)
+            ce = float(metrics["ce"])
+            loss_s = time.perf_counter() - t0
+            n2 = AK.ATTN_LAUNCHES
+            want = 0 if impl == "xla" else LM_LAUNCHES
+            check(n1 - n0 == want and n2 - n1 == want,
+                  f"{impl}: {n1 - n0} and {n2 - n1} tri_attn launches per "
+                  f"forward, want {want}")
+            check(out.shape == (1, LM_SEQ, cfg.padded_vocab)
+                  and out.dtype == torch.float32, f"{impl}: logits shape")
+            check(bool(torch.isfinite(out).all()) and math.isfinite(ce),
+                  f"{impl}: logits or loss not finite")
+            logits[impl] = out
+            rows[impl] = {"forward_s": fwd_s, "lm_loss_s": loss_s,
+                          "loss": float(loss), "ce": ce,
+                          "launches_forward": n1 - n0,
+                          "launches_lm_loss": n2 - n1}
+        counts = self.counts()
+        self.launches["tri_attn"] = counts["tri_attn"]
+        check(torch.equal(logits["pallas_mapped"], logits["pallas_bb"]),
+              "mapped and BB logits differ")
+        del logits["pallas_bb"]
+        k, x = logits["pallas_mapped"], logits["xla"]
+        ce_rel = abs(rows["pallas_mapped"]["ce"] - rows["xla"]["ce"]) \
+            / abs(rows["xla"]["ce"])
+        top1 = float((k.argmax(-1) == x.argmax(-1)).float().mean())
+        max_diff = float((k - x).abs().max())
+        scale = float(x.abs().max())
+        del logits, k
+        fwd_rel = max_diff / scale
+        # the control: the same forward with a deep-row combine fault
+        control_rel, control_ce_rel = self._faulty_forward_rel(
+            params, cfg, tokens, x)
+        del x
+        check(fwd_rel <= FWD_LOGIT_RTOL,
+              f"logits kernel vs xla: {fwd_rel} of max |logit|")
+        check(control_rel > FWD_LOGIT_RTOL,
+              f"the control fault moved the logits by only {control_rel}: "
+              f"the {FWD_LOGIT_RTOL} gate cannot see it")
+        check(ce_rel <= CE_RTOL, f"CE kernel vs xla: relative {ce_rel}")
+        check(top1 >= TOP1_MIN, f"top-1 agreement kernel vs xla {top1}")
+        emit({"phase": "lm_forward", "card": self.card, "arch": LM_ARCH,
+              "params": n_params, "dtype": cfg.dtype, "tokens": [1, LM_SEQ],
+              "init_s": init_s, "impls": rows,
+              "mapped_equals_bb": True, "ce_rel_vs_xla": ce_rel,
+              "ce_rtol": CE_RTOL, "top1_vs_xla": top1, "top1_min": TOP1_MIN,
+              "max_abs_logit_diff_vs_xla": max_diff,
+              "max_abs_logit_xla": scale, "logit_rel_vs_xla": fwd_rel,
+              "logit_rtol": FWD_LOGIT_RTOL,
+              "control_fault_logit_rel_vs_xla": control_rel,
+              "control_fault_ce_rel_vs_xla": control_ce_rel,
+              "main_path_launches": counts,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    def _faulty_forward_rel(self, params, cfg, tokens,
+                            xla_logits) -> tuple[float, float]:
+        """max |Δ logit| / max |logit| against ``xla_logits`` of a kernel
+        forward whose attention drops the j = 0 partial of every row from
+        S/2 on, as a combine that starts one partial late would: one of 17
+        to 32 partials.  Also the relative change of the next-token CE."""
+        F = self.torch.nn.functional
+        from repro_torch.kernels.tri_attn import ops
+        from repro_torch.models import transformer as T
+
+        real = ops.causal_attention
+
+        def faulty(q, k, v, block_q=128, block_k=128, grid_mode="mapped",
+                   interpret=False):
+            o = real(q, k, v, block_q, block_k, grid_mode, interpret)
+            half = q.shape[2] // 2
+            tail = real(q[:, :, block_q:], k[:, :, block_q:],
+                        v[:, :, block_q:], block_q, block_k, grid_mode,
+                        interpret)
+            o[:, :, half:] = tail[:, :, half - block_q:]
+            return o
+
+        ops.causal_attention = faulty
+        try:
+            out = T.forward(params, cfg.replace(attn_impl="pallas_mapped"),
+                            tokens)
+        finally:
+            ops.causal_attention = real
+        rel = float((out - xla_logits).abs().max()) \
+            / float(xla_logits.abs().max())
+        labels = tokens[0, 1:]
+        ce = [float(F.cross_entropy(x[0, :-1, :cfg.vocab_size], labels))
+              for x in (out, xla_logits)]
+        del out
+        return rel, abs(ce[0] - ce[1]) / ce[1]
+
+    # -- phase 8 -------------------------------------------------------------
+    def lm_generate(self) -> None:
+        import numpy as np
+
+        torch, AK = self.torch, self.AK
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.serving.engine import generate
+
+        params = self.lm_params
+        cfg = get_config(LM_ARCH).replace(max_seq=GEN_PROMPT + GEN_NEW)
+        prompts = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int64)).cuda()
+        self.reset_counts()
+        t0 = time.perf_counter()
+        res = generate(params, cfg, prompts, GEN_NEW)
+        self.sync()
+        gen_s = time.perf_counter() - t0
+        check(res.steps == GEN_NEW and res.tokens.shape
+              == (GEN_BATCH, GEN_PROMPT + GEN_NEW), "generate's shape")
+        check(bool((res.tokens[:, :GEN_PROMPT] == prompts).all()),
+              "generate changed the prompt")
+        t0 = time.perf_counter()
+        pre, cache = T.prefill(params, cfg, prompts)
+        self.sync()
+        prefill_s = time.perf_counter() - t0
+        decode_ms = (gen_s - prefill_s) / GEN_NEW * 1e3
+        # prefill against forward at the prompt positions
+        fwd = T.forward(params, cfg, prompts)
+        pre_rel = float((pre - fwd).abs().max()) / float(fwd.abs().max())
+        pre_top1 = float((pre.argmax(-1) == fwd.argmax(-1)).float().mean())
+        check(pre_rel <= LOGIT_RTOL, f"prefill vs forward: {pre_rel}")
+        check(pre_top1 >= TOP1_MIN, f"prefill vs forward top-1 {pre_top1}")
+        check(torch.equal(pre[:, -1:, :cfg.vocab_size].argmax(-1),
+                          res.tokens[:, GEN_PROMPT:GEN_PROMPT + 1]),
+              "a second prefill's first token is not generate's")
+        # the first decode_step against forward over prompt + token
+        nt = pre[:, -1:, :cfg.vocab_size].argmax(-1)
+        del fwd, pre
+        dec, _ = T.decode_step(params, cfg, nt, cache)
+        full = T.forward(params, cfg, torch.cat([prompts, nt], dim=1))[:, -1]
+        dec_rel = float((dec[:, 0] - full).abs().max()) \
+            / float(full.abs().max())
+        check(dec_rel <= LOGIT_RTOL, f"decode_step vs forward: {dec_rel}")
+        launches = AK.ATTN_LAUNCHES
+        check(launches == 0, f"{launches} tri_attn launches in generate")
+        emit({"phase": "lm_generate", "card": self.card, "arch": LM_ARCH,
+              "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
+              "max_seq": cfg.max_seq, "generate_s": gen_s,
+              "prefill_s": prefill_s, "decode_ms_per_step": decode_ms,
+              "tokens_per_s": GEN_BATCH * GEN_NEW / gen_s,
+              "prefill_vs_forward_rel": pre_rel,
+              "prefill_vs_forward_top1": pre_top1,
+              "decode_vs_forward_rel": dec_rel, "logit_rtol": LOGIT_RTOL,
+              "tri_attn_launches": launches,
+              "note": "prefill and decode run the plain SDPA, as in the "
+                      "reference: no tri_attn launch is expected",
+              "sample": res.tokens[0, GEN_PROMPT:GEN_PROMPT + 8].tolist()})
+        del self.lm_params, params, cache, res, dec, full
+        torch.cuda.empty_cache()
+
+        # the LM demo entry point, as a user runs it
+        from repro_torch.launch import serve
+
+        argv = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "32",
+                "--max-new", "32"]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            serve.main(argv)
+        demo_s = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        check(any("generated 32 steps x 4 seqs" in ln for ln in lines),
+              f"LM demo printed {lines}")
+        emit({"phase": "lm_demo", "card": self.card,
+              "command": "python -m repro_torch.launch.serve " + " ".join(argv),
+              "seconds": demo_s, "stdout": lines})
+
     def kernels_line(self) -> None:
         src = "src/repro_torch/kernels/domain_map/csrc/"
         replaces = {"map_kernel": "src/repro/kernels/domain_map/kernel.py:53",
                     "membership_kernel":
                         "src/repro/kernels/domain_map/kernel.py:65"}
-        emit({"kernels": [
+        rows = [
             {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
              "replaces": replaces[name],
              "launches": self.launches[name],
@@ -385,7 +868,13 @@ class Smoke:
              "ms": t["ms"], "plain_ms": t["plain_ms"],
              "bound_ms": t["bytes"] / HBM_BYTES_PER_S * 1e3,
              "bound_by": "bytes", "library_ms": None}
-            for name, t in self.totals.items()]})
+            for name, t in self.totals.items()]
+        rows.append({
+            "name": "tri_attn", "route": "cuda",
+            "source": "src/repro_torch/kernels/tri_attn/csrc/tri_attn.cu",
+            "replaces": "src/repro/kernels/tri_attn/kernel.py:54",
+            "launches": self.launches["tri_attn"], **self.attn_row})
+        emit({"kernels": rows})
 
 
 def main() -> int:
@@ -394,12 +883,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # full fp32 products everywhere (the plain versions are the yardstick)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smoke = Smoke()
     kind = smoke.device()
     smoke.build()
     smoke.kernels()
     smoke.paper_scale()
     smoke.evaluate()
+    smoke.attention()
+    smoke.lm_forward()
+    smoke.lm_generate()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -16,18 +16,13 @@ raises where there is no card; ``interpret=True`` runs the plain version on
 the CPU.  Nothing falls back from one to the other.
 
 Build: at first use, each ``csrc/*.cu`` is compiled by ``nvcc`` (all at
-once, one process each) into a shared library with a plain C interface
-under ``build/kernels/`` at the repository root; the file name carries a
-hash of the sources and flags, so an edit rebuilds and a repeat run
-reuses.  Importing this module builds nothing.
+once, one process each) into a shared library with a plain C interface,
+through ``repro_torch.kernels.build``.  Importing this module builds
+nothing.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
@@ -36,6 +31,7 @@ import torch
 from repro_torch.core.artifact import resolve_spec
 from repro_torch.core.domains import get_domain
 from repro_torch.core.registry import REGISTRY
+from repro_torch.kernels import build
 from repro_torch.kernels.domain_map.geometry import (
     GEOMETRY, MAX_BASE, MAX_DIM, KernelGeometry,
 )
@@ -47,9 +43,6 @@ MEMBERSHIP_LAUNCHES = 0
 _count_mu = threading.Lock()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: the kernel libraries, one per ``csrc/<name>.cu``
 LIBRARIES = ("map_kernel", "membership_kernel")
 
@@ -118,28 +111,6 @@ def _pack_box(extent: tuple[int, ...]) -> _Box:
 # build + bind
 # ---------------------------------------------------------------------------
 
-_libs: dict[str, ctypes.CDLL] = {}
-_build_mu = threading.Lock()
-BUILD_LOG: dict[str, str] = {}   # library -> nvcc's output (ptxas -v lines)
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    found = str(path) if path.exists() else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the domain-map "
-                           "kernels are built from csrc/ at first use")
-    return found
-
-
-def _library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
-
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
@@ -154,48 +125,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def build_kernels() -> dict[str, Path]:
-    """Build (where missing) and load every kernel library; returns their
-    paths.  The ``nvcc`` runs start together, one per source."""
-    with _build_mu:
-        paths = {name: _library_path(name) for name in LIBRARIES}
-        todo = [name for name in LIBRARIES
-                if name not in _libs and not paths[name].exists()]
-        if todo:
-            nvcc = _nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            procs = {}
-            for name in todo:
-                tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-                procs[name] = (tmp, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                     str(CSRC / f"{name}.cu")],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
-            failed = []
-            for name, (tmp, proc) in procs.items():
-                out, _ = proc.communicate()
-                BUILD_LOG[name] = out
-                if proc.returncode != 0:
-                    failed.append(f"{name}.cu (nvcc exit {proc.returncode})"
-                                  f":\n{out}")
-                    tmp.unlink(missing_ok=True)
-                else:
-                    os.replace(tmp, paths[name])
-            if failed:
-                raise RuntimeError("kernel build failed: " + "\n".join(failed))
-        for name in LIBRARIES:
-            if name not in _libs:
-                _libs[name] = _bind(ctypes.CDLL(str(paths[name])))
-        return paths
-
-
+#: the kernel libraries, one per ``csrc/<name>.cu``
+LIBS = {name: build.register(build.Library(name, CSRC, _bind))
+        for name in LIBRARIES}
 def _library(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        build_kernels()
-        lib = _libs[name]
-    return lib
+    return build.load(LIBS[name])
 
 
 def _require_cuda() -> None:

@@ -1,7 +1,8 @@
 """Serving layer: the batched map *evaluation* hot path (``evaluate``:
 launcher groups behind ``POST /v1/evaluate``) and the binary evaluation
 wire codec (``wire``: zero-copy array framing plus the encoded-response
-LRU).  The socket frontends are not ported yet."""
+LRU), and the LM engine (``engine``: prefill + greedy decode).  The socket
+frontends are not ported yet."""
 from repro_torch.serving.evaluate import (  # noqa: F401
     EvalStats, EvaluationService, encoded_batch_response, hydrate_result,
     wire_result,

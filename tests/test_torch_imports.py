@@ -1,6 +1,6 @@
-"""The port stands alone: importing ``repro_torch`` and every module in it
-loads neither JAX nor any module of the JAX package ``repro``, and builds
-no kernel."""
+"""The port stands alone: importing ``repro_torch``, every module in it and
+``chip_smoke.py`` loads neither JAX nor any module of the JAX package
+``repro``, and builds no kernel."""
 import json
 import os
 import subprocess
@@ -8,9 +8,10 @@ import sys
 import textwrap
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 PROBE = textwrap.dedent("""
-    import importlib, json, pkgutil, sys
+    import importlib, importlib.util, json, pkgutil, sys
     import repro_torch
     names = ["repro_torch"]
     for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
@@ -18,8 +19,15 @@ PROBE = textwrap.dedent("""
         names.append(info.name)
     from repro_torch.core.registry import REGISTRY
     assert len(REGISTRY.domains()) == 12
-    from repro_torch.kernels.domain_map import kernel
-    assert not kernel._libs, "importing built a kernel"
+    from repro_torch.kernels import build
+    assert not build.LOADED, "importing built a kernel"
+    from repro_torch.kernels.tri_attn import kernel as attn_kernel
+    assert set(build.LIBRARIES) == {"map_kernel", "membership_kernel",
+                                    "tri_attn"}
+    assert attn_kernel.ATTN_LAUNCHES == 0
+    spec = importlib.util.spec_from_file_location("chip_smoke", CHIP_SMOKE)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    assert not build.LOADED, "importing built a kernel"
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "repro" or m.startswith("repro."))
@@ -29,10 +37,18 @@ PROBE = textwrap.dedent("""
 
 def test_port_imports_neither_jax_nor_repro():
     env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC)}
-    out = subprocess.run([sys.executable, "-c", PROBE], env=env,
+    probe = PROBE.replace(
+        "CHIP_SMOKE", repr(os.path.abspath(os.path.join(ROOT,
+                                                        "chip_smoke.py"))))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     assert seen["bad"] == []
     assert "repro_torch.serving.evaluate" in seen["modules"]
     assert "repro_torch.kernels.domain_map.kernel" in seen["modules"]
+    for name in ("repro_torch.models.transformer",
+                 "repro_torch.kernels.tri_attn.kernel",
+                 "repro_torch.serving.engine", "repro_torch.launch.serve",
+                 "repro_torch.train.train_step", "repro_torch.configs.yi_6b"):
+        assert name in seen["modules"]
