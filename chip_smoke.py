@@ -6,8 +6,8 @@
 Phases, each printing one JSON line:
 
   device       the card's name and power limit (nvidia-smi), torch's name
-  build        nvcc-builds the two domain-map kernels and tri_attn from
-               their csrc/ directories, one nvcc each, all in parallel
+  build        nvcc-builds the two domain-map kernels, tri_attn and wkv
+               from their csrc/ directories, one nvcc each, all in parallel
   kernels      every domain: the map kernel against its plain torch version
                at λ in [0, 2^22), near 2^31 and near 5e8, and the membership
                kernel on a box of about 2^22 cells — exact equality
@@ -33,6 +33,27 @@ Phases, each printing one JSON line:
   lm_generate  engine.generate at full width, batch 4, prompt 512, 32 greedy
                tokens; prefill and decode_step held against forward; then
                the LM demo entry point (repro_torch.launch.serve --arch yi-6b)
+  wkv          the wkv kernel against its plain version and the recurrence
+               oracle (tests/test_kernels_wkv.py's cases in fp32 and bf16,
+               the LM shapes (40, 4096, 64) and (160, 512, 64) in fp32),
+               two calls chained through the state equal to one, strong
+               decays finite, the (B, S, H, D) strided path and every
+               v-column split bit-identical to the contiguous call, a
+               gradient check, and at the LM shape its median time beside
+               its bound and the plain version's
+  rwkv_forward rwkv6-3b at full width (bf16, random weights from a seeded
+               torch.Generator), tokens (1, 4096): forward and lm_loss, 32
+               wkv launches per forward; every layer's kernel call held
+               against the plain version on its own inputs; logits held
+               against the same forward with the plain wkv on the card,
+               beside a 1e-6 noise forward, and a faulty wkv (the state
+               lost at S/2) that must fail that gate
+  rwkv_generate engine.generate at full width, batch 4, prompt 512, 32
+               greedy tokens: 32 wkv launches in prefill, none in decode;
+               prefill bit-identical to forward, the first decode step
+               against a forward over prompt + token, every layer's prefill
+               time mix against the scan oracle on its own inputs; then the
+               LM demo (--arch rwkv6-3b --prompt-len 64)
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
 failed check raises and the script exits non-zero; without a CUDA device it
@@ -105,6 +126,54 @@ TOP1_MIN = 0.95
 #: carry that to the logits.  Bound: max |Δ logit| <= 5e-2 · max |logit|.
 LOGIT_RTOL = 5e-2
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
+#: the fp32 rate outside the tensor cores (NVIDIA data sheet), for the wkv
+#: kernel's fp32 work on the LM path
+FP32_FLOP_PER_S = 67e12
+#: tests/test_kernels_wkv.py's cases as (B·H, S, D, chunk), then the LM
+#: path's shapes: rwkv6-3b's 40 heads at S = 4096 (forward) and at batch 4,
+#: S = 512 (generate's prefill).  fp32 o and state are held to that test's
+#: 1e-4.  bf16 o: kernel and plain version compute in fp32 and round o to
+#: bf16 once, so they differ by at most one bf16 ulp of the element, at most
+#: 2^-7 of the row's max |o| (against the fp32 oracle, half that), plus the
+#: fp32 1e-4
+WKV_CASES = [(2, 128, 16, 32), (1, 256, 32, 64), (4, 64, 64, 16)]
+WKV_MAIN = (40, 4096, 64, 64)
+WKV_GEN = (GEN_BATCH * 40, GEN_PROMPT, 64, 64)
+WKV_TOL = 1e-4
+WKV_BF16_ROW_RTOL = 2.0 ** -7
+#: uniform decays w = exp(-exp(dec)) = 0.26, 0.19, 0.066: the reference's
+#: chunked form is 0.065 off or non-finite there; the kernel must hold 1e-4
+WKV_STRONG = (0.3, 0.5, 1.0)
+RWKV_ARCH = "rwkv6-3b"
+RWKV_PARAMS = 3_073_313_280
+RWKV_SEQ = 4096
+RWKV_LAUNCHES = 32             # one wkv launch per layer per chunked pass
+#: every layer's wkv call on the main path, held against the plain version
+#: on the same inputs (the model's own r, k, v, w and state): max |Δ| over
+#: the call's max |o| (and |state|), fp32 orders only
+RWKV_LAYER_RTOL = 1e-5
+#: kernel vs plain wkv, logits at full width, bf16: max |Δ logit| over max
+#: |logit|.  Both compute the WKV in fp32 in other orders (o differs by
+#: about 1e-6 relative, see RWKV_LAYER_RTOL), and this random 32-layer model
+#: amplifies any such difference to every position: the run's "noise"
+#: forward (the kernel's o scaled by 1 + 1e-6·N(0, 1)) moves the median
+#: position by 5.4e-2 of max |logit| and the worst by 0.91 on an H100.  So
+#: this gate is a regression guard for this kernel's arithmetic (the run is
+#: deterministic), set at about twice the measured 6.9e-2, not a rounding
+#: tolerance; the per-layer check above is the tight one.  A control proves
+#: it can fail: the kernel forward with the state lost at S/2 (1.46).
+RWKV_LOGIT_RTOL = 0.15
+#: each layer's time mix in prefill (the kernel), held against the scan
+#: oracle on the same inputs: the wkv state to RWKV_LAYER_RTOL (fp32 orders),
+#: the bf16 output to 2^-6 of its max |out|: both paths round o to bf16
+#: after the group norm, and a one-ulp (2^-8) flip of a few elements, summed
+#: through wo, stays inside that
+RWKV_MIX_RTOL = 2.0 ** -6
+#: the first decode step (the scan, from prefill's state) against a forward
+#: over prompt + token (the scan all the way): other evaluation orders, the
+#: same amplification as RWKV_LOGIT_RTOL; measured 0.128 of max |logit| on
+#: an H100, gate about twice that
+RWKV_DECODE_RTOL = 0.3
 
 
 def emit(obj: dict) -> None:
@@ -124,14 +193,16 @@ class Smoke:
         from repro_torch.kernels import build
         from repro_torch.kernels.domain_map import kernel, ops
         from repro_torch.kernels.tri_attn import kernel as attn_kernel
+        from repro_torch.kernels.wkv import kernel as wkv_kernel
 
         self.torch, self.K, self.ops, self.DOMAINS = torch, kernel, ops, DOMAINS
-        self.build_mod, self.AK = build, attn_kernel
+        self.build_mod, self.AK, self.WK = build, attn_kernel, wkv_kernel
         self.max_err = {"map_kernel": 0, "membership_kernel": 0}
         self.launches = {}
         self.totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
                        for k in self.max_err}
         self.attn_row = {}
+        self.wkv_row = {}
 
     # -- helpers -------------------------------------------------------------
     def sync(self):
@@ -167,12 +238,14 @@ class Smoke:
     def counts(self) -> dict:
         return {"map_kernel": self.K.MAP_LAUNCHES,
                 "membership_kernel": self.K.MEMBERSHIP_LAUNCHES,
-                "tri_attn": self.AK.ATTN_LAUNCHES}
+                "tri_attn": self.AK.ATTN_LAUNCHES,
+                "wkv": self.WK.WKV_LAUNCHES}
 
     def reset_counts(self) -> None:
         """Every kernel's launch count to 0, just before a main path."""
         self.K.reset_launch_counts()
         self.AK.reset_launch_counts()
+        self.WK.reset_launch_counts()
 
     # -- phase 1 -------------------------------------------------------------
     def device(self) -> str:
@@ -214,7 +287,7 @@ class Smoke:
         K, ops = self.K, self.ops
         n = 1 << 22
         starts = (0, (1 << 31) - 1000, N_PAPER - (1 << 20))
-        K.reset_launch_counts()
+        self.reset_counts()
         for name, d in self.DOMAINS.items():
             for start in starts:
                 _, padded, ndigits = ops.map_plan(name, n, 1024, start)
@@ -297,7 +370,7 @@ class Smoke:
 
         cache = CompileCache(max_entries=64)
         rows = {}
-        K.reset_launch_counts()
+        self.reset_counts()
         # the main-path calls: one mapped launch per domain at N = 5e8
         for name, d in self.DOMAINS.items():
             _, padded, ndigits = ops.map_plan(name, N_PAPER, 1024)
@@ -820,6 +893,7 @@ class Smoke:
         full = T.forward(params, cfg, torch.cat([prompts, nt], dim=1))[:, -1]
         dec_rel = float((dec[:, 0] - full).abs().max()) \
             / float(full.abs().max())
+        profiles = {"decode_vs_forward": self._profile(dec[:, 0], full)}
         check(dec_rel <= LOGIT_RTOL, f"decode_step vs forward: {dec_rel}")
         launches = AK.ATTN_LAUNCHES
         check(launches == 0, f"{launches} tri_attn launches in generate")
@@ -855,6 +929,497 @@ class Smoke:
               "command": "python -m repro_torch.launch.serve " + " ".join(argv),
               "seconds": demo_s, "stdout": lines})
 
+    # -- phase 9 -------------------------------------------------------------
+    def _wkv_inputs(self, bh, s, d, dtype, gen, dec=None):
+        """tests/test_kernels_wkv.py's distributions, on the card: r, k, v ~
+        N(0, 0.25), w = exp(-exp(N(0, 0.09) - 5)) or a uniform
+        exp(-exp(dec)), u ~ N(0, 0.25), a zero state."""
+        torch = self.torch
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        r, k, v = (randn(bh, s, d).mul_(0.5).to(dtype) for _ in range(3))
+        if dec is None:
+            w = torch.exp(-torch.exp(randn(bh, s, d) * 0.3 - 5.0))
+        else:
+            w = torch.full((bh, s, d), math.exp(-math.exp(dec)),
+                           device="cuda")
+        u = randn(bh, d) * 0.5
+        s0 = torch.zeros((bh, d, d), device="cuda")
+        return r, k, v, w, u, s0
+
+    @staticmethod
+    def _wkv_bound_ms(bh, s, d, chunk, itemsize) -> tuple[float, dict]:
+        """The least time for the chunked WKV: r, k, v (``itemsize``) and w
+        (fp32) read once, o written once, the states read and written once,
+        at the memory rate; against the products the function needs per
+        (bh, chunk) -- the strictly-lower pairs' scores and their P v,
+        2·D·C(C-1), the bonus diagonal, 5·C·D, r̃ S_in and the state update,
+        4·C·D² -- at the fp32 rate (the path's inputs are fp32)."""
+        flop = bh * (s // chunk) * (2 * d * chunk * (chunk - 1)
+                                    + 5 * chunk * d + 4 * chunk * d * d)
+        nbytes = bh * s * d * (4 * itemsize + 4) + 2 * bh * d * d * 4 \
+            + bh * d * 4
+        t_ops = flop / FP32_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), {
+            "flop": flop, "bytes": nbytes, "ops_ms": t_ops,
+            "bytes_ms": t_bytes,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def _wkv_case(self, x, chunk, what, worst) -> None:
+        """The kernel against ``wkv_chunked_plain`` and ``wkv_ref``."""
+        torch, WK = self.torch, self.WK
+        from repro_torch.kernels.wkv.ops import wkv_chunked
+        from repro_torch.kernels.wkv.ref import wkv_ref
+
+        o, st = wkv_chunked(*x, chunk=chunk)
+        self.sync()
+        fp32 = x[0].dtype == torch.float32
+        for (wo, ws), name, rtol in (
+                (WK.wkv_chunked_plain(*x, chunk=chunk), "wkv_chunked_plain",
+                 WKV_BF16_ROW_RTOL),
+                (wkv_ref(*(t.float() for t in x)), "wkv_ref",
+                 WKV_BF16_ROW_RTOL / 2)):
+            check(bool(torch.isfinite(o).all() and torch.isfinite(st).all()),
+                  f"{what}: non-finite output")
+            s_err = float((st - ws).abs().max())
+            diff = (o.float() - wo.float()).abs()
+            if fp32:
+                err = float(diff.max())
+                if name == "wkv_chunked_plain":
+                    worst["vs_plain"] = max(worst["vs_plain"], err, s_err)
+                worst["o_fp32"] = max(worst["o_fp32"], err)
+                check(err < WKV_TOL, f"{what}: o vs {name} max abs err {err}")
+            else:
+                excess = float((diff.amax(-1) - rtol * wo.float().abs()
+                                .amax(-1)).max())
+                worst["bf16_row_excess"] = max(worst["bf16_row_excess"],
+                                               excess)
+                check(excess < WKV_TOL, f"{what}: bf16 o vs {name} exceeds "
+                      f"{rtol} of the row's max |o| by {excess}")
+            worst["state"] = max(worst["state"], s_err)
+            check(s_err < WKV_TOL, f"{what}: state vs {name} {s_err}")
+            del wo, ws, diff
+
+    def wkv(self) -> None:
+        import gc
+
+        torch, WK = self.torch, self.WK
+        from repro_torch.kernels.wkv.ops import wkv_chunked
+        from repro_torch.kernels.wkv.ref import wkv_ref
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        worst = {"vs_plain": 0.0, "o_fp32": 0.0, "state": 0.0,
+                 "bf16_row_excess": -1.0}
+        cases = [(c, dt) for c in WKV_CASES
+                 for dt in (torch.float32, torch.bfloat16)]
+        cases += [(WKV_MAIN, torch.float32), (WKV_GEN, torch.float32)]
+        for (bh, s, d, chunk), dtype in cases:
+            x = self._wkv_inputs(bh, s, d, dtype, gen)
+            self._wkv_case(x, chunk, f"{(bh, s, d, chunk)} {dtype}", worst)
+        # strong decays: the reference's chunked form overflows there
+        strong = {}
+        for dec in WKV_STRONG:
+            for bh, s, d in ((2, 128, 16), (40, 512, 64)):
+                x = self._wkv_inputs(bh, s, d, torch.float32, gen, dec)
+                o, st = wkv_chunked(*x, chunk=64)
+                o_r, s_r = wkv_ref(*x)
+                err = max(float((o - o_r).abs().max()),
+                          float((st - s_r).abs().max()))
+                strong[f"dec={dec} {(bh, s, d)}"] = err
+                check(bool(torch.isfinite(o).all()) and err < WKV_TOL,
+                      f"strong decay {dec} {(bh, s, d)}: {err}")
+        # two calls chained through the state = one call, bit for bit
+        r, k, v, w, u, s0 = self._wkv_inputs(40, 1024, 64, torch.float32, gen)
+        o_full, s_full = wkv_chunked(r, k, v, w, u, s0)
+        oa, sa = wkv_chunked(r[:, :512], k[:, :512], v[:, :512], w[:, :512],
+                             u, s0)
+        ob, sb = wkv_chunked(r[:, 512:], k[:, 512:], v[:, 512:], w[:, 512:],
+                             u, sa)
+        check(torch.equal(torch.cat([oa, ob], 1), o_full)
+              and torch.equal(sb, s_full),
+              "two calls chained through the state differ from one call")
+        # the model's (B, S, H, D) layout read through its strides, and every
+        # v-column split, bit-identical to the contiguous (BH, S, D) call
+        b, h, s, d = GEN_BATCH, 40, GEN_PROMPT, 64
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        r4, k4, v4 = (randn(b, s, h * d).view(b, s, h, d) * 0.5
+                      for _ in range(3))
+        w4 = torch.exp(-torch.exp(randn(b, s, h * d) * 0.3 - 5.0)) \
+            .view(b, s, h, d)
+        u4, st4 = randn(h, d) * 0.5, randn(b, h, d, d) * 0.1
+        o4, s4 = wkv_chunked(r4, k4, v4, w4, u4, st4)
+        rows = [t.contiguous() for t in
+                WK.heads_to_rows(r4, k4, v4, w4, u4, st4)]
+        o3, s3 = WK.rows_to_heads(*wkv_chunked(*rows), b, h)
+        check(torch.equal(o4, o3) and torch.equal(s4, s3),
+              "the strided (B, S, H, D) path differs from the contiguous one")
+        splits = {}
+        n_split = WK.n_split
+        try:
+            for ns in WK.SPLITS:
+                WK.n_split = lambda bh, d, sms, ns=ns: ns
+                splits[ns] = WK.launch_wkv(r4, k4, v4, w4, u4, st4, 64)
+        finally:
+            WK.n_split = n_split
+        for ns, (o_n, s_n) in splits.items():
+            check(torch.equal(o_n, o4) and torch.equal(s_n, s4),
+                  f"nsplit {ns} differs from the default split")
+        del r4, k4, v4, w4, o4, o3, rows, splits
+        # gradients through the autograd.Function (backward: the plain form)
+        x = self._wkv_inputs(4, 256, 32, torch.float32, gen)
+        g_o = torch.randn((4, 256, 32), generator=gen, device="cuda")
+        grads = []
+        for fn in (lambda *a: wkv_chunked(*a, chunk=32),
+                   lambda *a: WK.wkv_chunked_plain(*a, chunk=32)):
+            xs = [t.clone().requires_grad_() for t in x]
+            o, st = fn(*xs)
+            ((o * g_o).sum() + st.sum()).backward()
+            grads.append([t.grad for t in xs])
+        grad_err = max(float((a - c).abs().max()) / float(c.abs().max())
+                       for a, c in zip(*grads))
+        check(grad_err < 1e-5, f"wkv gradients differ by {grad_err}")
+
+        # the LM path's shape: times beside the bound
+        bh, s, d, chunk = WKV_MAIN
+        x = self._wkv_inputs(bh, s, d, torch.float32, gen)
+        ms = self.time_ms(lambda: wkv_chunked(*x, chunk=chunk))
+        plain_ms = self.time_ms(lambda: WK.wkv_chunked_plain(*x, chunk=chunk),
+                                reps=3)
+        bound_ms, bound = self._wkv_bound_ms(bh, s, d, chunk, 4)
+        nsplit = WK.n_split(bh, d, torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
+        self.wkv_row = {"max_abs_err": worst["vs_plain"], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound["bound_by"], "library_ms": None}
+        emit({"phase": "wkv", "card": self.card,
+              "shape": {"BH": bh, "S": s, "D": d, "chunk": chunk,
+                        "dtype": "float32"},
+              "nsplit": nsplit, "blocks": bh * nsplit, "ms": ms,
+              "bound_ms": bound_ms, **bound, "plain_ms": plain_ms,
+              "library_ms": None, "x_bound": ms / bound_ms,
+              "cases": len(cases), "max_err": worst, "tol": WKV_TOL,
+              "bf16_row_rtol": WKV_BF16_ROW_RTOL, "strong_decay_err": strong,
+              "chained_equals_one_call": True,
+              "strided_equals_contiguous": True,
+              "splits_equal": list(WK.SPLITS), "grad_rel_err": grad_err})
+
+    # -- phase 10 ------------------------------------------------------------
+    def _rwkv_forward_with(self, params, cfg, tokens, kind: str,
+                           layer_errs: list | None = None):
+        """Logits of ``forward`` with ``wkv_chunked`` replaced: by its plain
+        version on the card (``"plain"``); by the kernel held against the
+        plain version on each call's inputs, the kernel's result going on
+        (``"compare"``, each call's relative errors appended to
+        ``layer_errs``); by the kernel with o scaled by 1 + 1e-6·N(0, 1)
+        (``"noise"``); or by the kernel with the state lost at S/2
+        (``"faulty"``: the second half starts from zero, a fault of the kind
+        a chunk loop that restarts could make)."""
+        torch, WK = self.torch, self.WK
+        from repro_torch.kernels.wkv import ops
+        from repro_torch.models import transformer as T
+
+        real = ops.wkv_chunked
+        gen = torch.Generator(device="cuda").manual_seed(4)
+
+        def plain(r, k, v, w, u, state, chunk=64, interpret=False):
+            b, _, h, _ = r.shape
+            o, st = WK.wkv_chunked_plain(
+                *WK.heads_to_rows(r, k, v, w, u, state), chunk)
+            return WK.rows_to_heads(o, st, b, h)
+
+        def compare(r, k, v, w, u, state, chunk=64, interpret=False):
+            o, st = real(r, k, v, w, u, state, chunk, interpret)
+            po, pst = plain(r, k, v, w, u, state, chunk)
+            layer_errs.append(
+                (float((o - po).abs().max()) / float(po.abs().max()),
+                 float((st - pst).abs().max()) / float(pst.abs().max())))
+            return o, st
+
+        def noise(r, k, v, w, u, state, chunk=64, interpret=False):
+            o, st = real(r, k, v, w, u, state, chunk, interpret)
+            eps = torch.randn(o.shape, generator=gen, device=o.device)
+            return o * (1 + 1e-6 * eps), st
+
+        def faulty(r, k, v, w, u, state, chunk=64, interpret=False):
+            half = r.shape[1] // 2
+            o1, _ = real(r[:, :half], k[:, :half], v[:, :half], w[:, :half],
+                         u, state, chunk, interpret)
+            o2, s2 = real(r[:, half:], k[:, half:], v[:, half:], w[:, half:],
+                          u, torch.zeros_like(state), chunk, interpret)
+            return torch.cat([o1, o2], dim=1), s2
+
+        ops.wkv_chunked = {"plain": plain, "compare": compare,
+                           "noise": noise, "faulty": faulty}[kind]
+        try:
+            return T.forward(params, cfg, tokens)
+        finally:
+            ops.wkv_chunked = real
+
+    def _profile(self, got, want) -> dict:
+        """Per position (and batch row): max |Δ logit| over the run's max
+        |logit| of ``want``; its max and quantiles over the positions."""
+        torch = self.torch
+        d = (got - want).abs().amax(-1).flatten() / float(want.abs().max())
+        q = torch.quantile(d, torch.tensor([0.5, 0.9, 0.99],
+                                           device=d.device))
+        return {"max": float(d.max()), "p50": float(q[0]),
+                "p90": float(q[1]), "p99": float(q[2])}
+
+    def rwkv_forward(self) -> None:
+        import gc
+
+        import numpy as np
+
+        torch, WK = self.torch, self.WK
+        F = torch.nn.functional
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import count_params
+        from repro_torch.train.train_step import lm_loss
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(RWKV_ARCH)
+        t0 = time.perf_counter()
+        self.rwkv_params = T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        self.sync()
+        init_s = time.perf_counter() - t0
+        params = self.rwkv_params
+        n_params = count_params(params)
+        check(n_params == RWKV_PARAMS, f"{n_params} parameters, want "
+              f"{RWKV_PARAMS}")
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (1, RWKV_SEQ), dtype=np.int64)).cuda()
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+        T.forward(params, cfg, tokens[:, :256])      # warm-up (cuBLAS etc.)
+        self.sync()
+
+        self.reset_counts()
+        t0 = time.perf_counter()
+        logits = T.forward(params, cfg, tokens)
+        self.sync()
+        fwd_s = time.perf_counter() - t0
+        n1 = WK.WKV_LAUNCHES
+        t0 = time.perf_counter()
+        loss, metrics = lm_loss(params, cfg, batch)
+        ce = float(metrics["ce"])
+        loss_s = time.perf_counter() - t0
+        counts = self.counts()
+        self.launches["wkv"] = counts["wkv"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(n1 == RWKV_LAUNCHES and counts["wkv"] - n1 == RWKV_LAUNCHES,
+              f"{n1} and {counts['wkv'] - n1} wkv launches per forward, want "
+              f"{RWKV_LAUNCHES}")
+        check(all(n == 0 for k, n in counts.items() if k != "wkv"),
+              f"other kernels launched in the rwkv forward: {counts}")
+        check(logits.shape == (1, RWKV_SEQ, cfg.padded_vocab)
+              and logits.dtype == torch.float32, "logits shape")
+        check(bool(torch.isfinite(logits).all()) and math.isfinite(ce),
+              "logits or loss not finite")
+
+        layer_errs = []
+        again = self._rwkv_forward_with(params, cfg, tokens, "compare",
+                                        layer_errs)
+        deterministic = torch.equal(again, logits)
+        del again
+        plain = self._rwkv_forward_with(params, cfg, tokens, "plain")
+        scale = float(plain.abs().max())
+        max_diff = float((logits - plain).abs().max())
+        rel = max_diff / scale
+        top1 = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+        labels = tokens[0, 1:]
+        ces = {}
+        for name, x in (("kernel", logits), ("plain", plain)):
+            ces[name] = float(F.cross_entropy(x[0, :-1, :cfg.vocab_size],
+                                              labels))
+        profiles = {"kernel_vs_plain": self._profile(logits, plain)}
+        noisy = self._rwkv_forward_with(params, cfg, tokens, "noise")
+        profiles["noise_1e-6_vs_kernel"] = self._profile(noisy, logits)
+        noise_rel = profiles["noise_1e-6_vs_kernel"]["max"]
+        del logits, noisy
+        faulty = self._rwkv_forward_with(params, cfg, tokens, "faulty")
+        profiles["control_vs_plain"] = self._profile(faulty, plain)
+        control_rel = float((faulty - plain).abs().max()) / scale
+        ces["control"] = float(F.cross_entropy(
+            faulty[0, :-1, :cfg.vocab_size], labels))
+        del faulty, plain
+        layer_o = max(e[0] for e in layer_errs)
+        layer_state = max(e[1] for e in layer_errs)
+        emit({"phase": "rwkv_forward", "card": self.card, "arch": RWKV_ARCH,
+              "params": n_params, "dtype": cfg.dtype, "tokens": [1, RWKV_SEQ],
+              "init_s": init_s, "forward_s": fwd_s, "lm_loss_s": loss_s,
+              "loss": float(loss), "ce": ce, "ce_next_token": ces,
+              "layer_calls": len(layer_errs), "layer_o_rel_vs_plain": layer_o,
+              "layer_state_rel_vs_plain": layer_state,
+              "layer_rtol": RWKV_LAYER_RTOL,
+              "second_forward_equal": deterministic,
+              "max_abs_logit_diff_vs_plain": max_diff,
+              "max_abs_logit_plain": scale, "logit_rel_vs_plain": rel,
+              "logit_rtol": RWKV_LOGIT_RTOL, "top1_vs_plain": top1,
+              "noise_1e-6_logit_rel": noise_rel, "profiles": profiles,
+              "control_fault_logit_rel_vs_plain": control_rel,
+              "main_path_launches": counts, "peak_gb": peak_gb})
+        check(deterministic, "a second kernel forward differs")
+        check(len(layer_errs) == RWKV_LAUNCHES,
+              f"{len(layer_errs)} wkv calls in a forward")
+        check(layer_o <= RWKV_LAYER_RTOL and layer_state <= RWKV_LAYER_RTOL,
+              f"a layer's wkv differs from the plain version on its inputs: "
+              f"o {layer_o}, state {layer_state}")
+        check(rel <= RWKV_LOGIT_RTOL,
+              f"logits kernel vs plain wkv: {rel} of max |logit|")
+        check(control_rel > RWKV_LOGIT_RTOL,
+              f"the control fault moved the logits by only {control_rel}: "
+              f"the {RWKV_LOGIT_RTOL} gate cannot see it")
+
+    # -- phase 11 ------------------------------------------------------------
+    def rwkv_generate(self) -> None:
+        import gc
+
+        import numpy as np
+
+        torch, WK = self.torch, self.WK
+        from repro_torch.configs import get_config
+        from repro_torch.models import rwkv6
+        from repro_torch.models import transformer as T
+        from repro_torch.serving.engine import generate
+
+        params = self.rwkv_params
+        cfg = get_config(RWKV_ARCH).replace(max_seq=GEN_PROMPT + GEN_NEW)
+        prompts = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int64)).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        self.reset_counts()
+        t0 = time.perf_counter()
+        res = generate(params, cfg, prompts, GEN_NEW)
+        self.sync()
+        gen_s = time.perf_counter() - t0
+        gen_counts = self.counts()
+        check(res.steps == GEN_NEW and res.tokens.shape
+              == (GEN_BATCH, GEN_PROMPT + GEN_NEW), "generate's shape")
+        check(bool((res.tokens[:, :GEN_PROMPT] == prompts).all()),
+              "generate changed the prompt")
+        check(gen_counts["wkv"] == RWKV_LAUNCHES,
+              f"{gen_counts['wkv']} wkv launches in generate, want "
+              f"{RWKV_LAUNCHES} (prefill) + 0 (decode)")
+        n0 = WK.WKV_LAUNCHES
+        t0 = time.perf_counter()
+        pre, cache = T.prefill(params, cfg, prompts)
+        self.sync()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = WK.WKV_LAUNCHES - n0
+        nt = pre[:, -1:, :cfg.vocab_size].argmax(-1)
+        check(torch.equal(nt, res.tokens[:, GEN_PROMPT:GEN_PROMPT + 1]),
+              "a second prefill's first token is not generate's")
+        n0 = WK.WKV_LAUNCHES
+        dec, _ = T.decode_step(params, cfg, nt, cache)
+        self.sync()
+        decode_launches = WK.WKV_LAUNCHES - n0
+        check(prefill_launches == RWKV_LAUNCHES and decode_launches == 0,
+              f"{prefill_launches} wkv launches in prefill, "
+              f"{decode_launches} in a decode step")
+        decode_ms = (gen_s - prefill_s) / GEN_NEW * 1e3
+        # prefill against forward: the same chunked path from the zero state
+        fwd = T.forward(params, cfg, prompts)
+        prefill_equal = torch.equal(pre, fwd)
+        check(prefill_equal, "prefill logits differ from forward's")
+        del fwd
+        # the first decode step against forward over prompt + token (513
+        # tokens: the scan path all the way)
+        full = T.forward(params, cfg, torch.cat([prompts, nt], dim=1))[:, -1]
+        dec_rel = float((dec[:, 0] - full).abs().max()) \
+            / float(full.abs().max())
+        profiles = {"decode_vs_forward": self._profile(dec[:, 0], full)}
+        del full, dec
+        # every layer's prefill time mix (the kernel) against the scan oracle
+        # on the same inputs; the kernel's result goes on
+        real = rwkv6.rwkv_mix_chunked
+        layers = []
+
+        def rel(a, b):
+            return float((a.float() - b.float()).abs().max()) \
+                / float(b.float().abs().max())
+
+        def against_scan(p, c, x, xp, st, chunk=64):
+            out, last, s_new = real(p, c, x, xp, st, chunk)
+            s_out, s_last, s_st = rwkv6.rwkv_mix_scan(p, c, x, xp, st)
+            layers.append((rel(out, s_out), rel(s_new, s_st),
+                           torch.equal(last, s_last)))
+            return out, last, s_new
+
+        rwkv6.rwkv_mix_chunked = against_scan
+        n0 = WK.WKV_LAUNCHES
+        try:
+            again, _ = T.prefill(params, cfg, prompts)
+        finally:
+            rwkv6.rwkv_mix_chunked = real
+        check(WK.WKV_LAUNCHES - n0 == RWKV_LAUNCHES and torch.equal(again,
+                                                                    pre),
+              "a second prefill differs")
+        del again
+        mix_rel = max(x[0] for x in layers)
+        state_rel = max(x[1] for x in layers)
+        emit({"phase": "rwkv_generate", "card": self.card, "arch": RWKV_ARCH,
+              "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
+              "generate_s": gen_s, "prefill_s": prefill_s,
+              "decode_ms_per_step": decode_ms,
+              "tokens_per_s": GEN_BATCH * GEN_NEW / gen_s,
+              "wkv_launches": {"generate": gen_counts["wkv"],
+                               "prefill": prefill_launches,
+                               "decode_step": decode_launches},
+              "main_path_launches": gen_counts,
+              "prefill_equals_forward": prefill_equal,
+              "decode_vs_forward_rel": dec_rel,
+              "layers_vs_scan": {"calls": len(layers), "out_rel": mix_rel,
+                                 "wkv_state_rel": state_rel,
+                                 "last_x_equal": all(x[2] for x in layers),
+                                 "out_rtol": RWKV_MIX_RTOL,
+                                 "state_rtol": RWKV_LAYER_RTOL},
+              "decode_rtol": RWKV_DECODE_RTOL, "profiles": profiles,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "sample": res.tokens[0, GEN_PROMPT:GEN_PROMPT + 8].tolist()})
+        check(dec_rel <= RWKV_DECODE_RTOL,
+              f"decode_step vs forward: {dec_rel}")
+        check(len(layers) == cfg.n_layers and all(x[2] for x in layers),
+              "the scan oracle saw other layers or another last x")
+        check(state_rel <= RWKV_LAYER_RTOL and mix_rel <= RWKV_MIX_RTOL,
+              f"prefill vs the scan oracle per layer: state {state_rel}, "
+              f"out {mix_rel}")
+        del self.rwkv_params, params, cache, pre, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the LM demo entry point, as a user runs it (a 64-aligned prompt,
+        # so its prefill runs the kernel)
+        from repro_torch.launch import serve
+
+        argv = ["--arch", RWKV_ARCH, "--batch", "4", "--prompt-len", "64",
+                "--max-new", "32"]
+        out = io.StringIO()
+        n0 = WK.WKV_LAUNCHES
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            serve.main(argv)
+        demo_s = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        check(any("generated 32 steps x 4 seqs" in ln for ln in lines),
+              f"LM demo printed {lines}")
+        check(WK.WKV_LAUNCHES - n0 == RWKV_LAUNCHES,
+              f"{WK.WKV_LAUNCHES - n0} wkv launches in the LM demo")
+        emit({"phase": "rwkv_demo", "card": self.card,
+              "command": "python -m repro_torch.launch.serve " + " ".join(argv),
+              "seconds": demo_s, "wkv_launches": WK.WKV_LAUNCHES - n0,
+              "stdout": lines})
+
     def kernels_line(self) -> None:
         src = "src/repro_torch/kernels/domain_map/csrc/"
         replaces = {"map_kernel": "src/repro/kernels/domain_map/kernel.py:53",
@@ -874,6 +1439,11 @@ class Smoke:
             "source": "src/repro_torch/kernels/tri_attn/csrc/tri_attn.cu",
             "replaces": "src/repro/kernels/tri_attn/kernel.py:54",
             "launches": self.launches["tri_attn"], **self.attn_row})
+        rows.append({
+            "name": "wkv", "route": "cuda",
+            "source": "src/repro_torch/kernels/wkv/csrc/wkv.cu",
+            "replaces": "src/repro/kernels/wkv/kernel.py:25",
+            "launches": self.launches["wkv"], **self.wkv_row})
         emit({"kernels": rows})
 
 
@@ -895,6 +1465,9 @@ def main() -> int:
     smoke.attention()
     smoke.lm_forward()
     smoke.lm_generate()
+    smoke.wkv()
+    smoke.rwkv_forward()
+    smoke.rwkv_generate()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

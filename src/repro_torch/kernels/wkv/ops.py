@@ -1,0 +1,78 @@
+"""Public wrapper for the chunked WKV kernel.
+
+``wkv_chunked(r, k, v, w, u, state, chunk=64)`` keeps the reference's
+contract: r, k, v, w (BH, S, D), u (BH, D), state (BH, D, D) fp32, w the
+decay in (0, 1); it returns (o (BH, S, D) in r's dtype, final state fp32).
+It also takes the model's layout, r, k, v, w (B, S, H, D) with u (H, D) and
+state (B, H, D, D), read in place, and then returns o (B, S, H, D) and the
+state (B, H, D, D).  Gradients go through the plain version
+(``torch.autograd.Function``), as the reference's jnp form is
+differentiable.
+
+``interpret=False`` launches the CUDA kernel on CUDA tensors and raises on
+CPU tensors or without a card; ``interpret=True`` runs the kernel's plain
+version (``wkv_chunked_plain``) on CPU tensors.  Nothing falls back from one
+to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.wkv.kernel import (
+    check_shapes, heads_to_rows, launch_wkv, rows_to_heads, wkv_chunked_plain,
+)
+
+
+def _plain_heads(r, k, v, w, u, state, chunk):
+    """``wkv_chunked_plain`` on the (B, S, H, D) layout."""
+    b, _, h, _ = r.shape
+    o, s_out = wkv_chunked_plain(*heads_to_rows(r, k, v, w, u, state), chunk)
+    return rows_to_heads(o, s_out, b, h)
+
+
+class _WKV(torch.autograd.Function):
+    """(B, S, H, D) in, (o, final state) out."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk, interpret, heads_major):
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.chunk = chunk
+        if interpret:
+            return _plain_heads(r, k, v, w, u, state, chunk)
+        return launch_wkv(r, k, v, w, u, state, chunk,
+                          heads_major=heads_major)
+
+    @staticmethod
+    def backward(ctx, g_o, g_s):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(t.is_floating_point())
+                  for t in saved]
+            o, s_out = _plain_heads(*xs, ctx.chunk)
+            outs, grads = [o], [g_o]
+            if g_s is not None:
+                outs.append(s_out)
+                grads.append(g_s)
+            got = torch.autograd.grad(outs, xs, grads, allow_unused=True)
+        return (*got, None, None, None)
+
+
+def wkv_chunked(r, k, v, w, u, state, chunk: int = 64,
+                interpret: bool = False):
+    """The chunked WKV: (BH, S, D) as the reference, or (B, S, H, D) with u
+    (H, D) and state (B, H, D, D).  Returns (o in r's dtype, final state
+    fp32), in the layout of the inputs."""
+    check_shapes(r, k, v, w, u, state, chunk)
+    devices = {t.device.type for t in (r, k, v, w, u, state)}
+    if interpret and devices != {"cpu"}:
+        raise ValueError("interpret=True runs the plain version on CPU "
+                         f"tensors; these are on {sorted(devices)}")
+    if not interpret and devices != {"cuda"}:
+        raise ValueError("the wkv kernel takes CUDA tensors; pass "
+                         "interpret=True to run its plain version on the CPU")
+    if r.dim() == 4:
+        return _WKV.apply(r, k, v, w, u, state, chunk, interpret, False)
+    # (BH, S, D) as (1, S, BH, D): u (BH, D) is indexed by "head" bh
+    o, s_out = _WKV.apply(*(t.transpose(0, 1)[None] for t in (r, k, v, w)),
+                          u, state[None], chunk, interpret, True)
+    return o[0].transpose(0, 1), s_out[0]

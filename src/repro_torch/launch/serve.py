@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --batch 4 --prompt-len 32 --max-new 32
 
+``--arch`` takes a ported family's arch: the dense ones (yi-6b,
+llama3.2-3b, ...) and rwkv6-3b (ssm).
+
 Weights are random, from a ``torch.Generator`` seeded 0 and made on
 ``--device`` (default ``cuda``; ``--device cpu`` for a machine without a
 card, with ``--smoke`` for the reduced config).  The networked mapping

@@ -1,0 +1,182 @@
+"""RWKV-6 "Finch" — attention-free time mixing with data-dependent decay.
+
+Recurrence (per head, state S in R^{dk x dv}):
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    o_t = r_t^T S_{t-1} + (u ⊙ r_t)·k_t  v_t
+with w_t = exp(-exp(decay_t)) data-dependent (LoRA on the shifted input).
+
+Two equivalent evaluation paths:
+  * ``rwkv_mix_scan``    — the recurrence step by step (the oracle; decode
+    runs it, one step per token),
+  * ``rwkv_mix_chunked`` — the chunkwise-parallel form through the ``wkv``
+    kernel (``kernels/wkv``), where the reference computes the same chunked
+    form in plain jnp.
+
+The time mix and the channel mix are ``nn.Module``s holding the reference's
+parameter names and layouts; ``models/convert.py`` loads a reference tree.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.wkv import ops as wkv_ops
+from repro_torch.models.common import dense_init, frozen_param, rms_norm
+
+TMIX_NAMES = ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w", "wr", "wk", "wv",
+              "wg", "wd1", "wd2", "decay_base", "bonus_u", "wo", "ln_x")
+CMIX_NAMES = ("mix_k", "mix_r", "wk", "wv", "wr")
+
+
+class RWKVTimeMix(nn.Module):
+    """mix_* (d,), wr/wk/wv/wg/wo (d, d), wd1 (d, lora), wd2 (lora, d),
+    decay_base (d,) fp32, bonus_u (h, hd) fp32, ln_x (d,)."""
+
+    def __init__(self, **weights):
+        super().__init__()
+        if set(weights) != set(TMIX_NAMES):
+            raise ValueError(f"time mix weights {sorted(weights)}")
+        for name in TMIX_NAMES:
+            setattr(self, name, frozen_param(weights[name]))
+
+
+class RWKVChannelMix(nn.Module):
+    """mix_k, mix_r (d,), wk (d, d_ff), wv (d_ff, d), wr (d, d)."""
+
+    def __init__(self, **weights):
+        super().__init__()
+        if set(weights) != set(CMIX_NAMES):
+            raise ValueError(f"channel mix weights {sorted(weights)}")
+        for name in CMIX_NAMES:
+            setattr(self, name, frozen_param(weights[name]))
+
+
+def rwkv_block_init(generator: torch.Generator, cfg, dtype,
+                    device=None) -> RWKVTimeMix:
+    d = cfg.d_model
+    h = cfg.rwkv_heads
+    hd = d // h
+    lora = cfg.rwkv_decay_lora
+
+    def full(shape, value, dt=dtype):
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    def dense(i, o, **kw):
+        return dense_init(generator, i, o, dtype, device=device, **kw)
+
+    return RWKVTimeMix(
+        # token-shift mix coefficients (static lerp per projection)
+        mix_r=full((d,), 0.5), mix_k=full((d,), 0.5), mix_v=full((d,), 0.5),
+        mix_g=full((d,), 0.5), mix_w=full((d,), 0.5),
+        wr=dense(d, d), wk=dense(d, d), wv=dense(d, d), wg=dense(d, d),
+        # data-dependent decay LoRA: d -> lora -> d
+        wd1=dense(d, lora), wd2=dense(lora, d, scale=0.01),
+        decay_base=full((d,), -6.0, torch.float32),
+        bonus_u=full((h, hd), 0.5, torch.float32),
+        wo=dense(d, d),
+        ln_x=full((d,), 1.0),   # per-head group norm weight
+    )
+
+
+def _token_shift(x, x_prev):
+    """x_{t-1} with x_prev filling t=0.
+
+    x_prev state is carried fp32 (decode caches); cast to the compute dtype
+    so bf16 models stay bf16 through the mix projections."""
+    return torch.cat([x_prev[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
+
+
+def _projections(p: RWKVTimeMix, cfg, x, x_prev):
+    xs = _token_shift(x, x_prev)
+
+    def mix(m):
+        return x * m + xs * (1.0 - m)
+
+    r = mix(p.mix_r) @ p.wr
+    k = mix(p.mix_k) @ p.wk
+    v = mix(p.mix_v) @ p.wv
+    g = mix(p.mix_g) @ p.wg
+    dec = p.decay_base + (torch.tanh(mix(p.mix_w) @ p.wd1) @ p.wd2) \
+        .to(torch.float32)
+    w = torch.exp(-torch.exp(dec))  # decay in (0, 1), fp32
+    return r, k, v, g, w
+
+
+def _split_heads(t, h):
+    b, s, d = t.shape
+    return t.reshape(b, s, h, d // h)
+
+
+def _heads(p: RWKVTimeMix, cfg, x, x_prev):
+    """r, k, v (B, S, h, hd) fp32, w (B, S, h, hd) fp32 and the gate g."""
+    h = cfg.rwkv_heads
+    r, k, v, g, w = _projections(p, cfg, x, x_prev)
+    rh, kh, vh = (_split_heads(t, h).to(torch.float32) for t in (r, k, v))
+    return rh, kh, vh, _split_heads(w, h), g
+
+
+def _gate_out(p: RWKVTimeMix, x, o, g):
+    """Per-head group norm, then the output gate and projection."""
+    b, s, d = x.shape
+    hd = o.shape[-1]
+    o = rms_norm(o, torch.ones((hd,), dtype=o.dtype, device=o.device)) \
+        .reshape(b, s, d).to(x.dtype)
+    o = o * p.ln_x
+    o = o * F.silu(g)
+    return o @ p.wo
+
+
+def rwkv_mix_chunked(p: RWKVTimeMix, cfg, x, x_prev, state, chunk: int = 64):
+    """Chunkwise-parallel WKV through the kernel.  x: (B,S,d); state:
+    (B,h,dk,dv) carried in.  Returns (out, last_x, new_state)."""
+    rh, kh, vh, wh, g = _heads(p, cfg, x, x_prev)
+    o, state_f = wkv_ops.wkv_chunked(rh, kh, vh, wh, p.bonus_u, state,
+                                     chunk=chunk,
+                                     interpret=cfg.pallas_interpret)
+    out = _gate_out(p, x, o, g)
+    return out, x[:, -1, :].to(torch.float32), state_f.to(state.dtype)
+
+
+def rwkv_mix_scan(p: RWKVTimeMix, cfg, x, x_prev, state):
+    """Oracle: the recurrence step by step."""
+    rh, kh, vh, wh, g = _heads(p, cfg, x, x_prev)
+    u = p.bonus_u
+    S = state.to(torch.float32)
+    outs = []
+    for t in range(x.shape[1]):
+        r_t, k_t, v_t, w_t = rh[:, t], kh[:, t], vh[:, t], wh[:, t]
+        o_t = torch.einsum("bhk,bhkv->bhv", r_t, S) + \
+            (r_t * u[None] * k_t).sum(-1, keepdim=True) * v_t
+        S = w_t[..., None] * S + k_t[..., None] * v_t[..., None, :]
+        outs.append(o_t)
+    o = torch.stack(outs, dim=1)
+    out = _gate_out(p, x, o, g)
+    return out, x[:, -1, :].to(torch.float32), S.to(state.dtype)
+
+
+# -- channel mix (RWKV FFN) --------------------------------------------------
+
+
+def rwkv_cmix_init(generator: torch.Generator, cfg, dtype,
+                   device=None) -> RWKVChannelMix:
+    d, f = cfg.d_model, cfg.d_ff
+
+    def half():
+        return torch.full((d,), 0.5, dtype=dtype, device=device)
+
+    return RWKVChannelMix(
+        mix_k=half(), mix_r=half(),
+        wk=dense_init(generator, d, f, dtype, device=device),
+        wv=dense_init(generator, f, d, dtype, device=device),
+        wr=dense_init(generator, d, d, dtype, device=device))
+
+
+def rwkv_cmix_apply(p: RWKVChannelMix, cfg, x, x_prev):
+    xs = _token_shift(x, x_prev)
+    xk = x * p.mix_k + xs * (1.0 - p.mix_k)
+    xr = x * p.mix_r + xs * (1.0 - p.mix_r)
+    kk = torch.square(torch.relu(xk @ p.wk))
+    vv = kk @ p.wv
+    rr = torch.sigmoid(xr @ p.wr)
+    return rr * vv, x[:, -1, :].to(torch.float32)

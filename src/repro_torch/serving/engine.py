@@ -2,9 +2,12 @@
 
 Static-shape batching: a batch of requests is padded to a common prompt
 length, prefilled in one pass, then decoded step by step with
-``decode_step`` against a batch-major, fixed-``max_seq`` cache.  Prefill and
+``decode_step`` against a batch-major cache (fixed-``max_seq`` k/v for the
+dense family, the fixed-size RWKV state for ``ssm``).  Dense prefill and
 decode run the plain SDPA, as in the reference: the tri_attn kernel is
-reached only by a cache-less ``forward``.
+reached only by a cache-less ``forward``.  An RWKV prefill of a prompt whose
+length is a multiple of 64 runs the chunked WKV, and so the wkv kernel; its
+decode steps (one token) run the scan.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """The port's serving engine and LM demo (repro_torch.serving.engine,
 repro_torch.launch.serve) against the JAX package's, on the CPU, with
 tests/test_engine.py's setup: the yi-6b smoke config (fp32), reference
-parameters loaded through ``params_from_jax``."""
+parameters loaded through ``params_from_jax``; and the rwkv6-3b smoke config
+(fp32), whose 64-token prompts take the chunked WKV (the wkv kernel's plain
+version, ``pallas_interpret=True``) and whose decode steps take the scan."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,6 +99,38 @@ def test_lm_demo_runs_on_the_cpu(capsys):
                 "--batch", "2", "--prompt-len", "8", "--max-new", "4"])
     out = capsys.readouterr().out
     assert "arch=yi-6b" in out and "device=cpu" in out
+    assert "generated 4 steps x 2 seqs" in out
+
+
+@pytest.fixture(scope="module")
+def rwkv_setup():
+    rcfg = ref_smoke("rwkv6-3b")
+    cfg = get_smoke_config("rwkv6-3b").replace(pallas_interpret=True)
+    rparams = RT.init_params(jax.random.PRNGKey(0), rcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, rparams), cfg, "cpu")
+    return rcfg, cfg, rparams, params
+
+
+@pytest.mark.parametrize("prompt_len", [8, 64], ids=["scan", "chunked"])
+@pytest.mark.parametrize("batch,seed", [(1, 1), (3, 2)])
+def test_rwkv_greedy_tokens_match_reference(rwkv_setup, prompt_len, batch,
+                                            seed):
+    rcfg, cfg, rparams, params = rwkv_setup
+    rcfg = rcfg.replace(max_seq=prompt_len + MAX_NEW)
+    cfg = cfg.replace(max_seq=prompt_len + MAX_NEW)
+    prompts = np.random.default_rng(seed).integers(
+        0, 256, (batch, prompt_len)).astype(np.int32)
+    want = ref_generate(rparams, rcfg, jnp.asarray(prompts), MAX_NEW)
+    got = generate(params, cfg, torch.from_numpy(prompts), MAX_NEW)
+    assert got.steps == want.steps == MAX_NEW
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+
+
+def test_lm_demo_runs_rwkv_on_the_cpu(capsys):
+    serve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "64", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "arch=rwkv6-3b" in out and "device=cpu" in out
     assert "generated 4 steps x 2 seqs" in out
 
 

@@ -22,9 +22,11 @@ PROBE = textwrap.dedent("""
     from repro_torch.kernels import build
     assert not build.LOADED, "importing built a kernel"
     from repro_torch.kernels.tri_attn import kernel as attn_kernel
+    from repro_torch.kernels.wkv import kernel as wkv_kernel
     assert set(build.LIBRARIES) == {"map_kernel", "membership_kernel",
-                                    "tri_attn"}
+                                    "tri_attn", "wkv"}
     assert attn_kernel.ATTN_LAUNCHES == 0
+    assert wkv_kernel.WKV_LAUNCHES == 0
     spec = importlib.util.spec_from_file_location("chip_smoke", CHIP_SMOKE)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     assert not build.LOADED, "importing built a kernel"
@@ -50,5 +52,7 @@ def test_port_imports_neither_jax_nor_repro():
     for name in ("repro_torch.models.transformer",
                  "repro_torch.kernels.tri_attn.kernel",
                  "repro_torch.serving.engine", "repro_torch.launch.serve",
-                 "repro_torch.train.train_step", "repro_torch.configs.yi_6b"):
+                 "repro_torch.train.train_step", "repro_torch.configs.yi_6b",
+                 "repro_torch.kernels.wkv.kernel",
+                 "repro_torch.kernels.wkv.ops", "repro_torch.models.rwkv6"):
         assert name in seen["modules"]

@@ -297,7 +297,8 @@ def test_int8_kv_decode_matches_reference(model):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if ref_smoke(a).family != "dense"])
+                                  if ref_smoke(a).family
+                                  not in T.PORTED_FAMILIES])
 def test_unported_families_raise(arch):
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
