@@ -2,14 +2,23 @@
 //
 // Replaces the TPU kernel repro/kernels/tri_attn/kernel.py::_attn_kernel
 // (built by build_attention_call): o = softmax(q k^T D^-1/2, causal) v, with
-// q scaled in fp32 before the product, fp32 m / l / acc, NEG_INF masking and
-// o in q's dtype; fp32 or bf16 inputs, head_dim in {16, 32, 64, 128}, square
-// blocks of 16, 32, 64 or 128 rows.
+// fp32 m / l / acc, NEG_INF masking and o in q's dtype.  The wrapper
+// (kernel.py::launch_attention) takes one of two routes, by dtype and shape,
+// before any launch:
 //
-// The (q block i, k block j) pairs with j <= i are the paper's 2D triangular
-// domain.  On the TPU the grid ran in order and carried m, l, acc from step j
-// to step j+1 in VMEM; CUDA blocks run in parallel, so nothing carries over.
-// Instead the work is split in two launches:
+//   * sm90 (tri_attn_sm90.cuh, included at the end of this file): bf16,
+//     block 128, head_dim 64 or 128 -- the LM path's case.  Tensor cores
+//     (wgmma), TMA loads and a persistent grid of n_SM CTAs that each walk a
+//     contiguous range of the paper's lambda grid with the row state on
+//     chip; see the note there.
+//   * simt (this file): every other shape -- fp32 inputs, and bf16 with
+//     another block or head_dim (16, 32, 64 or 128; blocks of 16, 32, 64 or
+//     128 rows).  It is the first version, described below, kept unchanged.
+//
+// The simt route.  The (q block i, k block j) pairs with j <= i are the
+// paper's 2D triangular domain.  On the TPU the grid ran in order and carried
+// m, l, acc from step j to step j+1 in VMEM; here nothing carries over
+// between blocks, so the work is split in two launches:
 //
 //   * the pair launch: one block per (bh, i, j) pair computes that pair's
 //     partial (m, l, acc) -- block-local row max, exp, row sum, p v -- and
@@ -25,21 +34,18 @@
 //     and writes o.  Both modes compute the same partials with the same code
 //     and merge them in the same order, so their outputs are bit-identical.
 //
-// GQA: a block reads kv head h / (H / Hk) directly; nothing is repeated.
-// q, k, v and o are addressed through (b, h, s) strides with d contiguous.
+// q is scaled in fp32 before the product.  GQA: a block reads kv head
+// h / (H / Hk) directly; nothing is repeated.  q, k, v and o are addressed
+// through (b, h, s) strides with d contiguous.
 //
-// What bounds it on an H100: at the LM path's shape (B, H, Hk, S, D) =
-// (1, 32, 4, 4096, 128), block 128, causal attention needs 4 * D * S(S+1)/2
-// flop per head, 137.5 GFLOP over 32 heads, 0.139 ms at 989 TFLOP/s bf16
-// (the pairs as launched do 141.7 GFLOP: a diagonal pair computes its masked
-// half too), against 0.02 ms for reading q, k, v and writing o once: it is
-// bound by operations.  This first version is the
-// simple one: the products are fp32 FMAs on the CUDA cores out of shared
-// memory (4x4 to 8x8 register tiles per thread), one block of 256 threads
-// per pair, so it runs far from that bound; the workspace round trip
-// (B*H*T(nb)*block*(D+2)*4 bytes, 1.1 GB at that shape) costs about 0.7 ms
-// more.  Tensor cores (wgmma), TMA and a persistent row loop that keeps the
-// partials on chip are later work.
+// What bounds the simt route: causal attention at (1, 32, 4 kv, 4096, 128)
+// needs 137.5 GFLOP, operations-bound on an H100 (0.139 ms at 989 TFLOP/s
+// bf16, 0.023 ms of bytes).  The products here are fp32 FMAs on the CUDA
+// cores out of shared memory (4x4 to 8x8 register tiles per thread), one
+// block of 256 threads per pair, and the workspace round trip
+// (B*H*T(nb)*block*(D+2)*4 bytes; the wrapper splits B*H under a 2 GiB cap)
+// costs about 0.7 ms more at that shape in bf16, which is why the LM path's
+// case takes the sm90 route instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -358,3 +364,5 @@ extern "C" int ta_lam_to_ij_launch(int64_t lam0, int64_t n, int32_t* i_out,
                                                                  j_out);
   return (int)cudaGetLastError();
 }
+
+#include "tri_attn_sm90.cuh"

@@ -5,17 +5,20 @@
 in place), runs the forward, and differentiates through the plain oracle
 (``torch.autograd.Function``), as the reference's ``custom_vjp`` does.
 
-``interpret=False`` launches the CUDA kernel on CUDA tensors and raises on
-CPU tensors or without a card; ``interpret=True`` runs the kernel's plain
-version (``attention_pairs_plain``) on CPU tensors.  Nothing falls back
-from one to the other.
+``interpret=False`` launches the CUDA kernel on CUDA tensors, by the route
+``kernel.attention_route`` picks (``"sm90"`` for bf16, block 128, head_dim
+64 or 128; ``"simt"`` otherwise), and raises on CPU tensors, without a card
+or when a launch fails; ``interpret=True`` runs, on CPU tensors, the plain
+version of the route the card would take (``attention_stream_plain`` with
+an H100's CTA grid, or ``attention_pairs_plain``).  Nothing falls back from
+one to the other.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.tri_attn.kernel import (  # noqa: F401
-    MODES, attention_pairs_plain, launch_attention, tri_grid_size,
+    MODES, attention_plain, launch_attention, tri_grid_size,
 )
 from repro_torch.kernels.tri_attn.ref import causal_attention_ref
 
@@ -30,7 +33,7 @@ def _forward(q, k, v, block_q, block_k, grid_mode, interpret):
         if devices != {"cpu"}:
             raise ValueError("interpret=True runs the plain version on CPU "
                              f"tensors; these are on {sorted(devices)}")
-        return attention_pairs_plain(q, k, v, block_q)
+        return attention_plain(q, k, v, block_q, grid_mode)
     if devices != {"cuda"}:
         raise ValueError("the tri_attn kernel takes CUDA tensors; pass "
                          "interpret=True to run its plain version on the CPU")
@@ -64,9 +67,14 @@ def causal_attention(q, k, v, block_q: int = 128, block_k: int = 128,
     """Causal attention over the lower-triangular block domain.
 
     grid_mode: "mapped" (linear λ grid, the paper's technique) or
-    "bounding_box" (square grid + discard, the paper's baseline)."""
-    return _CausalAttention.apply(q, k, v, block_q, block_k, grid_mode,
-                                  interpret)
+    "bounding_box" (square grid + discard, the paper's baseline).  Where no
+    gradient is wanted the forward runs without the autograd node, whose
+    host time per call is about that of the launch itself."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _CausalAttention.apply(q, k, v, block_q, block_k, grid_mode,
+                                      interpret)
+    return _forward(q, k, v, block_q, block_k, grid_mode, interpret)
 
 
 def grid_steps(seq: int, block: int, grid_mode: str) -> int:
