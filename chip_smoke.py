@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --index-widths   # device, build, index_widths only
 
 Phases, each printing one JSON line:
 
@@ -9,8 +10,14 @@ Phases, each printing one JSON line:
   build        nvcc-builds the two domain-map kernels, tri_attn and wkv
                from their csrc/ directories, one nvcc each, all in parallel
   kernels      every domain: the map kernel against its plain torch version
-               at λ in [0, 2^22), near 2^31 and near 5e8, and the membership
-               kernel on a box of about 2^22 cells — exact equality
+               at λ in [0, 2^22), near 2^31 and near 5e8, at an odd start
+               with n not a multiple of 4 (unaligned rows, a ragged run),
+               and for the peel domains with a 32-bit path (m >= 4) on both
+               sides of their 32-bit bound and across it, and through the
+               64-bit path forced at small λ; the membership
+               kernel on a box of about 2^22 cells (also through the forced
+               64-bit path) and on a box with odd extents whose padded total
+               wraps — exact equality
   paper_scale  the paper's N = 5e8 (benchmarks/block_dense.py) through the
                mapped launcher for all 12 domains, checked against the
                plain version in chunks of 2^26 λ; BB membership for tri2d,
@@ -64,13 +71,20 @@ Phases, each printing one JSON line:
                time mix against the scan oracle on its own inputs; then the
                LM demo (--arch rwkv6-3b --prompt-len 64)
 
-then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.  Any
+then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+
+  index_widths (only with --index-widths) every paper_scale launch that
+               the host sends through a 32-bit path, its median time beside
+               the same launch forced through the 64-bit path, the two
+               outputs bit-identical
+  Any
 failed check raises and the script exits non-zero; without a CUDA device it
 exits 2 and prints no result.  Nothing here imports JAX or ``repro``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -95,8 +109,18 @@ REPS = 10                      # timed runs per kernel (median reported)
 #: the largest full fractal level whose box is <= 2^31 cells
 FRACTAL_LEVELS = {"gasket2d": 15, "carpet2d": 9, "sierpinski3d": 10,
                   "menger3d": 6}
+#: the BB boxes of paper_scale: the two dense domains at N = 5e8 and the
+#: four fractals at FRACTAL_LEVELS
+BB_DOMAINS = ("tri2d", "pyramid3d", *FRACTAL_LEVELS)
 #: about 2^22 cells per box, by dimension
 SMALL_BOX = {2: (2048, 2048), 3: (161, 161, 161), 4: (45,) * 4, 5: (21,) * 5}
+#: boxes with odd extents (rows end inside a run); launched with 1029 cells
+#: of padding past the box, which wrap around it
+ODD_BOX = {2: (1001, 777), 3: (37, 41, 43), 4: (9, 11, 13, 7),
+           5: (5, 7, 9, 11, 3)}
+ODD_PAD = 1029
+#: map launches at an odd start with n not a multiple of 4
+ODD_START, ODD_N = 12_345, (1 << 20) + 3
 #: tests/test_kernels_tri_attn.py's cases as (B, H, Hk, S, D, block), plus
 #: GQA ones; tolerances are that test's (3e-5 fp32, 3e-2 bf16)
 ATTN_CASES = [(1, 1, 1, 128, 64, 32), (1, 2, 2, 256, 64, 64),
@@ -326,18 +350,53 @@ class Smoke:
                            "max_registers": max(regs, default=0),
                            "kernels_spilling": sum(1 for x in spills if x),
                            "max_spill_store_bytes": max(spills, default=0)}
+        # the domain-map kernels, one by one: (registers, spill store bytes)
+        per_kernel = {}
+        for name in self.K.LIBRARIES:
+            per_kernel[name] = {}
+            for blk in self.build_mod.BUILD_LOG.get(name, "").split(
+                    "Compiling entry function '")[1:]:
+                regs = re.search(r"Used (\d+) registers", blk)
+                spill = re.search(r"(\d+) bytes spill stores", blk)
+                per_kernel[name][blk.split("'")[0]] = [
+                    int(regs[1]) if regs else None,
+                    int(spill[1]) if spill else 0]
         emit({"phase": "build", "seconds": dt,
               "libraries": {k: str(p.relative_to(ROOT))
                             for k, p in paths.items()},
-              "ptxas": ptxas})
+              "ptxas": ptxas, "ptxas_domain_map": per_kernel})
 
     # -- phase 3 -------------------------------------------------------------
+    def _map_case(self, name, start, n, index_bits=None) -> None:
+        K, ops = self.K, self.ops
+        _, _, ndigits = ops.map_plan(name, n, 1, start)
+        got = K._launch_map(name, n, ndigits, start, index_bits=index_bits)
+        want = K.map_plain(name, n, ndigits, start, device="cuda")
+        self.compare("map_kernel", got, want,
+                     f"{name} map at start={start}, n={n}, "
+                     f"bits={index_bits or 'auto'}")
+
+    def _membership_case(self, name, ext, total, index_bits=None) -> None:
+        K, ops = self.K, self.ops
+        _, _, ndigits = ops.membership_plan(name, ext, 1)
+        got = K._launch_membership(name, ext, total, ndigits,
+                                   index_bits=index_bits)
+        want = K.membership_plain(name, ext, ndigits, total, device="cuda")
+        self.compare("membership_kernel", got, want,
+                     f"{name} membership on {ext}, total={total}, "
+                     f"bits={index_bits or 'auto'}")
+
     def kernels(self) -> None:
         K, ops = self.K, self.ops
+        from repro_torch.kernels.domain_map import geometry as geo
+
         n = 1 << 22
         starts = (0, (1 << 31) - 1000, N_PAPER - (1 << 20))
         self.reset_counts()
+        cases = 0
+        bits_seen = {"map": set(), "membership": set()}
         for name, d in self.DOMAINS.items():
+            g = geo.GEOMETRY[name]
             for start in starts:
                 _, padded, ndigits = ops.map_plan(name, n, 1024, start)
                 got = K.launch_map(name, padded, ndigits, start)
@@ -345,16 +404,38 @@ class Smoke:
                                    device="cuda")
                 self.compare("map_kernel", got, want,
                              f"{name} map at start={start}")
-            ext = SMALL_BOX[d.dim]
-            _, padded, ndigits = ops.membership_plan(name, ext, 1024)
-            got = K.launch_membership(name, ext, padded, ndigits)
-            want = K.membership_plain(name, ext, ndigits, padded,
-                                      device="cuda")
-            self.compare("membership_kernel", got, want,
-                         f"{name} membership on {ext}")
+                bits_seen["map"].add(geo.map_index_bits(g, start, padded))
+            # an odd start, n % 4 == 3; a peel's 32-bit bound: the last
+            # launch below it, one across it, the first above it, and the
+            # 64-bit path where the 32-bit one is proven (the digit maps
+            # and the peels of m = 2, 3 are 64-bit throughout)
+            more = [(ODD_START, ODD_N, None)]
+            if g.family == geo.PEEL and g.m in geo.PEEL32_M:
+                bound = geo.PEEL_LAM32[g.m]
+                more += [(bound - n, n, None), (bound - n // 2 - 1, n + 3, None),
+                         (bound, n, None), (ODD_START, ODD_N, 64)]
+            for start, m, bits in more:
+                self._map_case(name, start, m, index_bits=bits)
+                bits_seen["map"].add(bits or geo.map_index_bits(g, start, m))
+            cases += len(starts) + len(more)
+            for ext, total, bits in (
+                    (SMALL_BOX[d.dim], None, None),
+                    (SMALL_BOX[d.dim], None, 64),
+                    (ODD_BOX[d.dim], math.prod(ODD_BOX[d.dim]) + ODD_PAD,
+                     None)):
+                if total is None:
+                    _, total, _ = ops.membership_plan(name, ext, 1024)
+                self._membership_case(name, ext, total, bits)
+                bits_seen["membership"].add(
+                    bits or geo.membership_index_bits(total))
+                cases += 1
         self.sync()
+        check(bits_seen["map"] == bits_seen["membership"] == {32, 64},
+              f"index widths driven: {bits_seen}")
         emit({"phase": "kernels", "domains": len(self.DOMAINS),
-              "map_starts": list(starts), "map_n": n,
+              "map_starts": list(starts), "map_n": n, "cases": cases,
+              "odd_start": ODD_START, "odd_n": ODD_N, "odd_boxes": ODD_BOX,
+              "index_bits": {k: sorted(v) for k, v in bits_seen.items()},
               "launches": self.counts(), "max_abs_err": self.max_err,
               "equal": True})
 
@@ -413,9 +494,21 @@ class Smoke:
             check(bool((mask[0, idx] == 1).all()),
                   f"{name}: a mapped point fails the BB membership test")
 
+    def _paper_box(self, name):
+        """(extent, level, mapped points) of a domain's paper-scale BB box:
+        the box of N = 5e8 for tri2d and pyramid3d, a full fractal level."""
+        d = self.DOMAINS[name]
+        if name in FRACTAL_LEVELS:
+            level = FRACTAL_LEVELS[name]
+            return (d.scale ** level,) * d.dim, level, d.size(level)
+        extent = d.bounding_box_extent(N_PAPER)
+        return extent, extent[0], N_PAPER
+
     def paper_scale(self) -> None:
-        torch, K, ops = self.torch, self.K, self.ops
+        torch, ops = self.torch, self.ops
         from repro_torch.core.compile_cache import CompileCache
+
+        from repro_torch.kernels.domain_map import geometry as geo
 
         cache = CompileCache(max_entries=64)
         rows = {}
@@ -430,6 +523,8 @@ class Smoke:
             plain_ms = self._check_map_chunks(name, out, N_PAPER, ndigits)
             del out
             rows[name] = {"n": N_PAPER, "padded": padded, "ndigits": ndigits,
+                          "index_bits": geo.map_index_bits(
+                              geo.GEOMETRY[name], 0, padded),
                           "bytes": d.dim * padded * 4, "call": call,
                           "plain_ms": plain_ms}
         # the map rows of the kernels line: these launches, one per domain
@@ -438,16 +533,9 @@ class Smoke:
               f"{self.K.MAP_LAUNCHES} map launches for {len(rows)} domains")
         # BB membership: dense boxes at N = 5e8, full fractal levels
         bb = {}
-        for name in ("tri2d", "pyramid3d", *FRACTAL_LEVELS):
+        for name in BB_DOMAINS:
             d = self.DOMAINS[name]
-            if name in FRACTAL_LEVELS:
-                level = FRACTAL_LEVELS[name]
-                extent = (d.scale ** level,) * d.dim
-                n_map = d.size(level)
-            else:
-                extent = d.bounding_box_extent(N_PAPER)
-                level = extent[0]
-                n_map = N_PAPER
+            extent, level, n_map = self._paper_box(name)
             total = math.prod(extent)
             _, padded, ndigits = ops.membership_plan(name, extent, 1024)
             call = ops.membership_executable(name, extent, padded, 1024,
@@ -468,7 +556,9 @@ class Smoke:
             self._members_of_mapped(name, coords, extent, mask)
             del mask, coords
             bb[name] = {"extent": list(extent), "cells": total,
-                        "padded": padded, "members": members,
+                        "padded": padded, "ndigits": ndigits,
+                        "members": members,
+                        "index_bits": geo.membership_index_bits(padded),
                         "level": level, "bytes": padded * 4, "call": call,
                         "plain_ms": plain_ms, "mapped_n": n_map,
                         "mapped_call": mcall, "mapped_bytes": d.dim * mpad * 4}
@@ -482,6 +572,7 @@ class Smoke:
         for name, r in rows.items():
             r["ms"] = self.time_ms(r.pop("call"))
             r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+            r["over_bound"] = r["ms"] / r["bound_ms"]
             emit({"phase": "paper_scale", "kernel": "map_kernel",
                   "domain": name, "card": self.card, **r})
             t = self.totals["map_kernel"]
@@ -492,6 +583,7 @@ class Smoke:
         for name, r in bb.items():
             r["ms"] = self.time_ms(r.pop("call"))
             r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+            r["over_bound"] = r["ms"] / r["bound_ms"]
             r["mapped_ms"] = self.time_ms(r.pop("mapped_call"))
             r["mapped_bound_ms"] = r["mapped_bytes"] / HBM_BYTES_PER_S * 1e3
             r["bb_over_mapped"] = r["ms"] / r["mapped_ms"]
@@ -506,6 +598,37 @@ class Smoke:
               "main_path_launches": main,
               "map_ms_12_domains": self.totals["map_kernel"]["ms"],
               "bb_ms_6_boxes": self.totals["membership_kernel"]["ms"]})
+
+    # -- opt-in ----------------------------------------------------------------
+    def index_widths(self) -> None:
+        """The paper-scale launches that take a 32-bit path: each one's
+        median time beside the same launch forced through the 64-bit path,
+        and the two outputs bit-identical."""
+        torch, K, ops = self.torch, self.K, self.ops
+        from repro_torch.kernels.domain_map import geometry as geo
+
+        pairs = []
+        for name in self.DOMAINS:
+            _, padded, ndigits = ops.map_plan(name, N_PAPER, 1024)
+            if geo.map_index_bits(geo.GEOMETRY[name], 0, padded) == 32:
+                pairs.append(("map_kernel", name, padded, functools.partial(
+                    K._launch_map, name, padded, ndigits, 0)))
+        for name in BB_DOMAINS:
+            extent = self._paper_box(name)[0]
+            _, padded, ndigits = ops.membership_plan(name, extent, 1024)
+            if geo.membership_index_bits(padded) == 32:
+                pairs.append(("membership_kernel", name, padded,
+                              functools.partial(K._launch_membership, name,
+                                                extent, padded, ndigits)))
+        for kernel, name, padded, launch in pairs:
+            check(torch.equal(launch(), launch(index_bits=64)),
+                  f"{name}: {kernel}'s 32-bit and 64-bit outputs differ")
+            self.sync()
+            ms32 = self.time_ms(launch)
+            ms64 = self.time_ms(lambda: launch(index_bits=64))
+            emit({"phase": "index_widths", "kernel": kernel, "domain": name,
+                  "card": self.card, "padded": padded, "ms_32bit": ms32,
+                  "ms_64bit": ms64})
 
     # -- phase 5 -------------------------------------------------------------
     def evaluate(self) -> None:
@@ -1747,6 +1870,9 @@ def main() -> int:
     smoke = Smoke()
     kind = smoke.device()
     smoke.build()
+    if "--index-widths" in sys.argv[1:]:
+        smoke.index_widths()
+        return 0
     smoke.kernels()
     smoke.paper_scale()
     smoke.evaluate()

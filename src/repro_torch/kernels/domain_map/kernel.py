@@ -3,10 +3,16 @@
 The paper's deployment kernels (Sec. V.C), hand-written for Hopper in
 ``csrc/`` and bound here with ``ctypes``:
 
-  * ``map_kernel``        — mapped strategy: one thread per λ of
-    ``[lam_offset, lam_offset + n)``, writing a (dim, n) int32 array.
-  * ``membership_kernel`` — bounding-box strategy: one thread per cell of
-    the box, writing its 0/1 int32 discard test as a (1, total) array.
+  * ``map_kernel``        — mapped strategy: the coordinates of λ in
+    ``[lam_offset, lam_offset + n)`` as a (dim, n) int32 array, a run of
+    consecutive λ per thread, derived once and stepped.
+  * ``membership_kernel`` — bounding-box strategy: the 0/1 int32 discard
+    test of the box's cells as a (1, total) array, a run of consecutive
+    cells per thread.
+
+The host picks each launch's index width (``geometry.map_index_bits``,
+``membership_index_bits``: 32-bit where proven exact) and makes the box's
+division multipliers (``geometry.magic``).
 
 Beside each kernel is its plain torch version (``map_plain``,
 ``membership_plain``), built from the registry's ``pallas``/``membership``
@@ -32,8 +38,9 @@ from repro_torch.core.artifact import resolve_spec
 from repro_torch.core.domains import get_domain
 from repro_torch.core.registry import REGISTRY
 from repro_torch.kernels import build
+from repro_torch.kernels.domain_map import geometry as geo
 from repro_torch.kernels.domain_map.geometry import (
-    GEOMETRY, MAX_BASE, MAX_DIM, KernelGeometry,
+    ALL_LEVELS, DIGITS, GEOMETRY, MAX_BASE, MAX_DIM, KernelGeometry,
 )
 
 #: kernel launches, counted by the wrappers where they launch and nowhere
@@ -66,15 +73,30 @@ class _Geom(ctypes.Structure):
     ]
 
 
+class _Magic(ctypes.Structure):
+    """ctypes mirror of ``DmMagic`` in ``csrc/domain_map.cuh``."""
+
+    _fields_ = [("mul", ctypes.c_uint64), ("sh1", ctypes.c_int32),
+                ("sh2", ctypes.c_int32)]
+
+
 class _Box(ctypes.Structure):
     """ctypes mirror of ``DomainBox`` in ``csrc/membership_kernel.cu``."""
 
     _fields_ = [("extent", ctypes.c_int64 * MAX_DIM),
-                ("stride", ctypes.c_int64 * MAX_DIM)]
+                ("div_stride", _Magic * MAX_DIM),
+                ("div_extent0", _Magic),
+                ("group_levels", ctypes.c_int32),
+                ("groups", ctypes.c_int32),
+                ("top_mod", ctypes.c_int64)]
 
 
 def pack_geometry(g: KernelGeometry) -> _Geom:
     """The kernels' argument block for one domain."""
+    if g.family == DIGITS and (any(g.vecs[0]) or not g.allowed & 1):
+        # the kernels lean on digit 0 adding nothing and on the origin
+        # cell's code 0 being allowed
+        raise ValueError(f"{g.name}: generator 0 is not the origin cell")
     c = _Geom(family=g.family, dim=g.dim, m=g.m, nchain=len(g.chain),
               base=g.base, scale=g.scale, allowed=g.allowed,
               all_levels=int(g.all_levels))
@@ -100,10 +122,20 @@ def _strides(extent: tuple[int, ...]) -> list[int]:
     return strides
 
 
-def _pack_box(extent: tuple[int, ...]) -> _Box:
+def _pack_box(g: KernelGeometry, extent: tuple[int, ...], ndigits: int,
+              bits: int) -> _Box:
+    """The membership kernel's box block: extents, the multipliers of the
+    strides and of extent[0] at the launch's width, and (DIGITS) the level
+    groups to test."""
     box = _Box()
     for k, (e, s) in enumerate(zip(extent, _strides(extent))):
-        box.extent[k], box.stride[k] = e, s
+        box.extent[k] = e
+        box.div_stride[k] = _Magic(*geo.magic(s, bits))
+    box.div_extent0 = _Magic(*geo.magic(extent[0], bits))
+    if g.family == DIGITS:
+        levels = ALL_LEVELS if g.all_levels else ndigits
+        box.group_levels, box.groups, box.top_mod = geo.digit_groups(
+            g, extent, levels)
     return box
 
 
@@ -116,7 +148,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
     if hasattr(lib, "dm_map_launch"):
         lib.dm_map_launch.argtypes = [ctypes.POINTER(_Geom), vp, i64, i64,
-                                      i32, vp]
+                                      i32, i32, vp]
         lib.dm_map_launch.restype = ctypes.c_int
     if hasattr(lib, "dm_membership_launch"):
         lib.dm_membership_launch.argtypes = [
@@ -128,6 +160,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 #: the kernel libraries, one per ``csrc/<name>.cu``
 LIBS = {name: build.register(build.Library(name, CSRC, _bind))
         for name in LIBRARIES}
+
+
 def _library(name: str) -> ctypes.CDLL:
     return build.load(LIBS[name])
 
@@ -146,18 +180,40 @@ def _stream() -> ctypes.c_void_p:
 # ---------------------------------------------------------------------------
 
 
+def _index_bits(auto: int, forced: int | None, what: str) -> int:
+    """The launch's index width: the host's proven choice, or 64 (or a 32
+    the proof allows) where a caller forces it."""
+    if forced is None:
+        return auto
+    if forced not in (32, 64) or forced < auto:
+        raise ValueError(f"{what}: {forced}-bit indices are not proven "
+                         f"exact here (needs {auto})")
+    return forced
+
+
 def launch_map(domain_name: str, n_points: int, ndigits: int,
                lam_offset: int = 0) -> torch.Tensor:
     """Launch the map kernel on the current stream: (dim, n_points) int32
     coordinates of λ in ``[lam_offset, lam_offset + n_points)``."""
+    return _launch_map(domain_name, n_points, ndigits, lam_offset)
+
+
+def _launch_map(domain_name: str, n_points: int, ndigits: int,
+                lam_offset: int = 0,
+                index_bits: int | None = None) -> torch.Tensor:
+    """``launch_map``; ``index_bits=64`` forces the 64-bit path (a check of
+    that path on λ the 32-bit one would take)."""
     global MAP_LAUNCHES
     _require_cuda()
     geom = PACKED[domain_name]
+    bits = _index_bits(
+        geo.map_index_bits(GEOMETRY[domain_name], lam_offset, n_points),
+        index_bits, f"map {domain_name} at {lam_offset}+{n_points}")
     out = torch.empty((geom.dim, n_points), dtype=torch.int32,
                       device="cuda")
     rc = _library("map_kernel").dm_map_launch(
         ctypes.byref(geom), ctypes.c_void_p(out.data_ptr()), n_points,
-        lam_offset, ndigits, _stream())
+        lam_offset, ndigits, bits, _stream())
     if rc != 0:
         raise RuntimeError(f"map_kernel launch for {domain_name} failed: "
                            f"cudaError {rc}")
@@ -171,16 +227,25 @@ def launch_membership(domain_name: str, extent: tuple[int, ...],
     """Launch the membership kernel on the current stream: the (1, total)
     int32 0/1 mask of the first ``total`` row-major cells of the box
     (indices past prod(extent) wrap around the box)."""
+    return _launch_membership(domain_name, extent, total, ndigits)
+
+
+def _launch_membership(domain_name: str, extent: tuple[int, ...],
+                       total: int, ndigits: int,
+                       index_bits: int | None = None) -> torch.Tensor:
+    """``launch_membership``; ``index_bits=64`` forces the 64-bit path."""
     global MEMBERSHIP_LAUNCHES
     _require_cuda()
     geom = PACKED[domain_name]
     if len(extent) != geom.dim:
         raise ValueError(f"extent {extent} is not {geom.dim}-dimensional")
+    bits = _index_bits(geo.membership_index_bits(total), index_bits,
+                       f"membership {domain_name} over {total} cells")
     out = torch.empty((1, total), dtype=torch.int32, device="cuda")
-    box = _pack_box(tuple(extent))
+    box = _pack_box(GEOMETRY[domain_name], tuple(extent), ndigits, bits)
     rc = _library("membership_kernel").dm_membership_launch(
         ctypes.byref(geom), ctypes.byref(box),
-        ctypes.c_void_p(out.data_ptr()), total, ndigits, _stream())
+        ctypes.c_void_p(out.data_ptr()), total, bits, _stream())
     if rc != 0:
         raise RuntimeError(f"membership_kernel launch for {domain_name} "
                            f"failed: cudaError {rc}")
