@@ -49,17 +49,23 @@ Phases, each printing one JSON line:
   lm_generate  engine.generate at full width, batch 4, prompt 512, 32 greedy
                tokens; prefill and decode_step held against forward; then
                the LM demo entry point (repro_torch.launch.serve --arch yi-6b)
-  wkv          the wkv kernel against its plain version and the recurrence
-               oracle (tests/test_kernels_wkv.py's cases in fp32 and bf16,
-               the LM shapes (40, 4096, 64) and (160, 512, 64) in fp32),
-               two calls chained through the state equal to one, strong
-               decays finite, the (B, S, H, D) strided path and every
-               v-column split bit-identical to the contiguous call, a
-               gradient check, and at the LM shape its median time beside
-               its bound and the plain version's
+  wkv          the wkv kernels (three a call: chunk states, state scan,
+               chunk outputs) against their plain composition and the
+               recurrence oracle (tests/test_kernels_wkv.py's cases in
+               fp32, bf16 and bf16 in / fp32 out, the LM shapes
+               (40, 4096, 64) and (160, 512, 64) in fp32 and bf16 in / fp32
+               out), each of the three kernels against its own plain phase
+               at the LM shape, two calls chained through the state equal
+               to one, strong decays finite, the (B, S, H, D) strided path
+               bit-identical to the contiguous call and o's two layouts to
+               each other, a gradient check, the kernels' registers and
+               spills, and at the LM shape the median time beside the bound
+               and the plain version's, fp32 in / out and the main path's
+               bf16 in / fp32 out
   rwkv_forward rwkv6-3b at full width (bf16, random weights from a seeded
                torch.Generator), tokens (1, 4096): forward and lm_loss, 32
-               wkv launches per forward; every layer's kernel call held
+               wkv launches per forward, three kernels issued by each (as
+               the C entry reports them); every layer's kernel call held
                against the plain version on its own inputs; logits held
                against the same forward with the plain wkv on the card,
                beside a 1e-6 noise forward, and a faulty wkv (the state
@@ -77,9 +83,10 @@ then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
                the host sends through a 32-bit path, its median time beside
                the same launch forced through the 64-bit path, the two
                outputs bit-identical
-  Any
-failed check raises and the script exits non-zero; without a CUDA device it
-exits 2 and prints no result.  Nothing here imports JAX or ``repro``.
+
+Any failed check
+raises and the script exits non-zero; without a CUDA device it exits 2 and
+prints no result.  Nothing here imports JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -189,10 +196,10 @@ FP32_FLOP_PER_S = 67e12
 #: tests/test_kernels_wkv.py's cases as (B·H, S, D, chunk), then the LM
 #: path's shapes: rwkv6-3b's 40 heads at S = 4096 (forward) and at batch 4,
 #: S = 512 (generate's prefill).  fp32 o and state are held to that test's
-#: 1e-4.  bf16 o: kernel and plain version compute in fp32 and round o to
-#: bf16 once, so they differ by at most one bf16 ulp of the element, at most
-#: 2^-7 of the row's max |o| (against the fp32 oracle, half that), plus the
-#: fp32 1e-4
+#: 1e-4, also from bf16 r, k, v (the widening is exact).  bf16 o: kernel and
+#: plain version compute in fp32 and round o to bf16 once, so they differ by
+#: at most one bf16 ulp of the element, at most 2^-7 of the row's max |o|
+#: (against the fp32 oracle, half that), plus the fp32 1e-4
 WKV_CASES = [(2, 128, 16, 32), (1, 256, 32, 64), (4, 64, 64, 16)]
 WKV_MAIN = (40, 4096, 64, 64)
 WKV_GEN = (GEN_BATCH * 40, GEN_PROMPT, 64, 64)
@@ -204,7 +211,9 @@ WKV_STRONG = (0.3, 0.5, 1.0)
 RWKV_ARCH = "rwkv6-3b"
 RWKV_PARAMS = 3_073_313_280
 RWKV_SEQ = 4096
-RWKV_LAUNCHES = 32             # one wkv launch per layer per chunked pass
+#: one wkv call per layer per chunked pass (``launch_wkv``; each issues
+#: three kernels: chunk states, state scan, chunk outputs)
+RWKV_LAUNCHES = 32
 #: every layer's wkv call on the main path, held against the plain version
 #: on the same inputs (the model's own r, k, v, w and state): max |Δ| over
 #: the call's max |o| (and |state|), fp32 orders only
@@ -296,6 +305,23 @@ class Smoke:
         t1 = time.perf_counter()
         self.sync()
         return (t1 - t0) / n * 1e6
+
+    def device_ms(self, fn, n: int = 20) -> float:
+        """Device time of one ``fn()`` call in ms: ``n`` calls issued while
+        the card is held busy, then timed back to back (CUDA events), so no
+        call waits for the host."""
+        torch = self.torch
+        fn()
+        self.sync()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
 
     def compare(self, kernel_name: str, got, want, what: str) -> None:
         torch = self.torch
@@ -1345,17 +1371,19 @@ class Smoke:
         return r, k, v, w, u, s0
 
     @staticmethod
-    def _wkv_bound_ms(bh, s, d, chunk, itemsize) -> tuple[float, dict]:
-        """The least time for the chunked WKV: r, k, v (``itemsize``) and w
-        (fp32) read once, o written once, the states read and written once,
-        at the memory rate; against the products the function needs per
-        (bh, chunk) -- the strictly-lower pairs' scores and their P v,
-        2·D·C(C-1), the bonus diagonal, 5·C·D, r̃ S_in and the state update,
-        4·C·D² -- at the fp32 rate (the path's inputs are fp32)."""
+    def _wkv_bound_ms(bh, s, d, chunk, in_itemsize,
+                      out_itemsize) -> tuple[float, dict]:
+        """The least time for the chunked WKV: r, k, v (``in_itemsize``) and
+        w (fp32) read once, o (``out_itemsize``) written once, the states
+        read and written once and u read once, at the memory rate; against
+        the products the function needs per (bh, chunk) -- the
+        strictly-lower pairs' scores and their P v, 2·D·C(C-1), the bonus
+        diagonal, 5·C·D, r̃ S_in and the state update, 4·C·D² -- at the
+        fp32 rate (the kernels' arithmetic is fp32)."""
         flop = bh * (s // chunk) * (2 * d * chunk * (chunk - 1)
                                     + 5 * chunk * d + 4 * chunk * d * d)
-        nbytes = bh * s * d * (4 * itemsize + 4) + 2 * bh * d * d * 4 \
-            + bh * d * 4
+        nbytes = bh * s * d * (3 * in_itemsize + 4 + out_itemsize) \
+            + 2 * bh * d * d * 4 + bh * d * 4
         t_ops = flop / FP32_FLOP_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         return max(t_ops, t_bytes), {
@@ -1363,18 +1391,18 @@ class Smoke:
             "bytes_ms": t_bytes,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
-    def _wkv_case(self, x, chunk, what, worst) -> None:
-        """The kernel against ``wkv_chunked_plain`` and ``wkv_ref``."""
+    def _wkv_case(self, x, chunk, what, worst, out_dtype=None) -> None:
+        """The kernels against ``wkv_chunked_plain`` and ``wkv_ref``."""
         torch, WK = self.torch, self.WK
         from repro_torch.kernels.wkv.ops import wkv_chunked
         from repro_torch.kernels.wkv.ref import wkv_ref
 
-        o, st = wkv_chunked(*x, chunk=chunk)
+        o, st = wkv_chunked(*x, chunk=chunk, out_dtype=out_dtype)
         self.sync()
-        fp32 = x[0].dtype == torch.float32
+        fp32 = o.dtype == torch.float32
         for (wo, ws), name, rtol in (
-                (WK.wkv_chunked_plain(*x, chunk=chunk), "wkv_chunked_plain",
-                 WKV_BF16_ROW_RTOL),
+                (WK.wkv_chunked_plain(*x, chunk=chunk, out_dtype=out_dtype),
+                 "wkv_chunked_plain", WKV_BF16_ROW_RTOL),
                 (wkv_ref(*(t.float() for t in x)), "wkv_ref",
                  WKV_BF16_ROW_RTOL / 2)):
             check(bool(torch.isfinite(o).all() and torch.isfinite(st).all()),
@@ -1398,6 +1426,77 @@ class Smoke:
             check(s_err < WKV_TOL, f"{what}: state vs {name} {s_err}")
             del wo, ws, diff
 
+    def _wkv_phases(self, x, chunk) -> dict:
+        """Each of the three kernels against its own plain phase, on the
+        kernels' own inputs to it: the chunk states (ΔS, A), the scan (S_in
+        of every chunk and the final state, from the kernel's ΔS and A; one
+        rounding a step on both sides, so within two fp32 ulps of max |S|)
+        and the chunk outputs (o, from the kernel's S_in)."""
+        torch, WK = self.torch, self.WK
+        r, k, v, w, u, s0 = x
+        heads = [t.transpose(0, 1)[None] for t in (r, k, v, w)]
+        out = torch.float32
+
+        def run(phases):
+            return WK._launch(*heads, u, s0[None], chunk, True, out, phases)
+
+        _, _, ds, a_end = run(1)
+        ds, a_end = ds.clone(), a_end.clone()
+        _, s_fin, s_in, _ = run(2)
+        s_in, s_fin = s_in.clone(), s_fin[0].clone()
+        o, _, _, _ = run(3)
+        self.sync()
+        p_ds, p_a = WK.wkv_chunk_states_plain(k, v, w, chunk)
+        p_in, p_fin = WK.wkv_state_scan_plain(ds, a_end, s0)
+        p_o = WK.wkv_chunk_outputs_plain(r, k, v, w, u, s_in, chunk, out)
+        errs = {"states_dS": float((ds - p_ds).abs().max()),
+                "states_A": float((a_end - p_a).abs().max()),
+                "scan_S_in": float((s_in - p_in).abs().max()),
+                "scan_final": float((s_fin - p_fin).abs().max()),
+                "outputs_o": float((o[0].transpose(0, 1) - p_o).abs().max())}
+        scale = max(float(p_in.abs().max()), float(p_fin.abs().max()))
+        errs["scan_rtol"] = 2.0 ** -22
+        errs["scan_bitwise"] = bool(torch.equal(s_in, p_in)
+                                    and torch.equal(s_fin, p_fin))
+        for key in ("states_dS", "states_A", "outputs_o"):
+            check(errs[key] < WKV_TOL, f"wkv kernel vs its plain phase: "
+                  f"{key} {errs[key]}")
+        check(max(errs["scan_S_in"], errs["scan_final"])
+              <= errs["scan_rtol"] * scale,
+              f"wkv scan vs its plain phase: {errs}")
+        return errs
+
+    def _wkv_ptxas(self) -> dict | None:
+        """Registers and spill store bytes of the three wkv kernels, from
+        nvcc's ``-Xptxas -v`` output: the main path's instantiation (bf16
+        in, fp32 out, chunk 64, D 64) and the worst over all of each
+        kernel's (None where this process did not build)."""
+        log = self.build_mod.BUILD_LOG.get("wkv")
+        if not log:
+            return None
+        main = {"wkv_states_kernel": "I13__nv_bfloat16Li64ELi64E",
+                "wkv_scan_kernel": "ILi64E",
+                "wkv_outputs_kernel": "I13__nv_bfloat16fLi64ELi64E"}
+        out = {k: {"instances": 0, "max_registers": 0,
+                   "max_spill_store_bytes": 0} for k in main}
+        for part in log.split("Compiling entry function")[1:]:
+            name = part.split("'")[1] if "'" in part else part.split()[0]
+            regs = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            regs = int(regs.group(1)) if regs else 0
+            spill = int(spill.group(1)) if spill else 0
+            for kname, tag in main.items():
+                if kname in name:
+                    row = out[kname]
+                    row["instances"] += 1
+                    row["max_registers"] = max(row["max_registers"], regs)
+                    row["max_spill_store_bytes"] = max(
+                        row["max_spill_store_bytes"], spill)
+                    if f"{kname}{tag}" in name:
+                        row["main"] = {"registers": regs,
+                                       "spill_store_bytes": spill}
+        return out
+
     def wkv(self) -> None:
         import gc
 
@@ -1410,12 +1509,19 @@ class Smoke:
         gen = torch.Generator(device="cuda").manual_seed(3)
         worst = {"vs_plain": 0.0, "o_fp32": 0.0, "state": 0.0,
                  "bf16_row_excess": -1.0}
-        cases = [(c, dt) for c in WKV_CASES
-                 for dt in (torch.float32, torch.bfloat16)]
-        cases += [(WKV_MAIN, torch.float32), (WKV_GEN, torch.float32)]
-        for (bh, s, d, chunk), dtype in cases:
+        f32, bf16 = torch.float32, torch.bfloat16
+        cases = [(c, dt, out) for c in WKV_CASES
+                 for dt, out in ((f32, None), (bf16, None), (bf16, f32))]
+        cases += [(WKV_MAIN, f32, None), (WKV_GEN, f32, None),
+                  (WKV_MAIN, bf16, f32), (WKV_GEN, bf16, f32)]
+        for (bh, s, d, chunk), dtype, out in cases:
             x = self._wkv_inputs(bh, s, d, dtype, gen)
-            self._wkv_case(x, chunk, f"{(bh, s, d, chunk)} {dtype}", worst)
+            self._wkv_case(x, chunk, f"{(bh, s, d, chunk)} {dtype} -> "
+                           f"{out or dtype}", worst, out)
+        # each kernel against its own plain phase, at the main path's shape
+        bh, s, d, chunk = WKV_MAIN
+        phases = self._wkv_phases(self._wkv_inputs(bh, s, d, bf16, gen),
+                                  chunk)
         # strong decays: the reference's chunked form overflows there
         strong = {}
         for dec in WKV_STRONG:
@@ -1438,8 +1544,9 @@ class Smoke:
         check(torch.equal(torch.cat([oa, ob], 1), o_full)
               and torch.equal(sb, s_full),
               "two calls chained through the state differ from one call")
-        # the model's (B, S, H, D) layout read through its strides, and every
-        # v-column split, bit-identical to the contiguous (BH, S, D) call
+        # the model's (B, S, H, D) layout read through its strides
+        # bit-identical to the contiguous (BH, S, D) call, and o written in
+        # either layout bit-identical (the launch's one free choice)
         b, h, s, d = GEN_BATCH, 40, GEN_PROMPT, 64
 
         def randn(*shape):
@@ -1456,18 +1563,12 @@ class Smoke:
         o3, s3 = WK.rows_to_heads(*wkv_chunked(*rows), b, h)
         check(torch.equal(o4, o3) and torch.equal(s4, s3),
               "the strided (B, S, H, D) path differs from the contiguous one")
-        splits = {}
-        n_split = WK.n_split
-        try:
-            for ns in WK.SPLITS:
-                WK.n_split = lambda bh, d, sms, ns=ns: ns
-                splits[ns] = WK.launch_wkv(r4, k4, v4, w4, u4, st4, 64)
-        finally:
-            WK.n_split = n_split
-        for ns, (o_n, s_n) in splits.items():
-            check(torch.equal(o_n, o4) and torch.equal(s_n, s4),
-                  f"nsplit {ns} differs from the default split")
-        del r4, k4, v4, w4, o4, o3, rows, splits
+        o_hm, s_hm = WK.launch_wkv(r4, k4, v4, w4, u4, st4, 64,
+                                   heads_major=True)
+        check(o_hm.stride() != o4.stride() and torch.equal(o_hm, o4)
+              and torch.equal(s_hm, s4),
+              "o written heads-major differs from o written (B, S, H, D)")
+        del r4, k4, v4, w4, o4, o3, rows, o_hm
         # gradients through the autograd.Function (backward: the plain form)
         x = self._wkv_inputs(4, 256, 32, torch.float32, gen)
         g_o = torch.randn((4, 256, 32), generator=gen, device="cuda")
@@ -1482,38 +1583,61 @@ class Smoke:
                        for a, c in zip(*grads))
         check(grad_err < 1e-5, f"wkv gradients differ by {grad_err}")
 
-        # the LM path's shape: times beside the bound
+        # the LM path's shape: times beside the bound, fp32 in / out (the
+        # parent kernel's yardstick) and bf16 in / fp32 out (the main path)
         bh, s, d, chunk = WKV_MAIN
-        x = self._wkv_inputs(bh, s, d, torch.float32, gen)
-        ms = self.time_ms(lambda: wkv_chunked(*x, chunk=chunk))
-        plain_ms = self.time_ms(lambda: WK.wkv_chunked_plain(*x, chunk=chunk),
-                                reps=3)
-        bound_ms, bound = self._wkv_bound_ms(bh, s, d, chunk, 4)
-        nsplit = WK.n_split(bh, d, torch.cuda.get_device_properties(0)
-                            .multi_processor_count)
-        self.wkv_row = {"max_abs_err": worst["vs_plain"], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound["bound_by"], "library_ms": None}
+        timed = {}
+        for name, dtype in (("float32", f32), ("bfloat16->float32", bf16)):
+            x = self._wkv_inputs(bh, s, d, dtype, gen)
+            ms = self.time_ms(lambda: wkv_chunked(*x, chunk=chunk,
+                                                  out_dtype=f32))
+            plain_ms = self.time_ms(lambda: WK.wkv_chunked_plain(
+                *x, chunk=chunk, out_dtype=f32), reps=3)
+            bound_ms, bound = self._wkv_bound_ms(
+                bh, s, d, chunk, x[0].element_size(), 4)
+            timed[name] = {"ms": ms, "bound_ms": bound_ms, **bound,
+                           "x_bound": ms / bound_ms, "plain_ms": plain_ms}
+            del x
+        main = timed["bfloat16->float32"]
+        # the main path's call split by kernel: device time with the first
+        # 1, 2, 3 kernels issued, back to back; and the host's share
+        x = self._wkv_inputs(bh, s, d, bf16, gen)
+        heads = [t.transpose(0, 1)[None] for t in x[:4]]
+        upto = [self.device_ms(lambda p=p: WK._launch(
+            *heads, x[4], x[5][None], chunk, True, f32, p))
+            for p in (1, 2, 3)]
+        breakdown = {"states_ms": upto[0], "scan_ms": upto[1] - upto[0],
+                     "outputs_ms": upto[2] - upto[1],
+                     "call_device_ms": upto[2],
+                     "call_host_us": self.host_us(lambda: wkv_chunked(
+                         *x, chunk=chunk, out_dtype=f32))}
+        del x, heads
+        self.wkv_row = {"max_abs_err": worst["vs_plain"], "ms": main["ms"],
+                        "plain_ms": main["plain_ms"],
+                        "bound_ms": main["bound_ms"],
+                        "bound_by": main["bound_by"], "library_ms": None,
+                        "dtype": "bfloat16 in, float32 out"}
         emit({"phase": "wkv", "card": self.card,
-              "shape": {"BH": bh, "S": s, "D": d, "chunk": chunk,
-                        "dtype": "float32"},
-              "nsplit": nsplit, "blocks": bh * nsplit, "ms": ms,
-              "bound_ms": bound_ms, **bound, "plain_ms": plain_ms,
-              "library_ms": None, "x_bound": ms / bound_ms,
+              "shape": {"BH": bh, "S": s, "D": d, "chunk": chunk},
+              "timed": timed,
+              "main_breakdown": breakdown, "library_ms": None,
               "cases": len(cases), "max_err": worst, "tol": WKV_TOL,
-              "bf16_row_rtol": WKV_BF16_ROW_RTOL, "strong_decay_err": strong,
-              "chained_equals_one_call": True,
+              "bf16_row_rtol": WKV_BF16_ROW_RTOL, "phases_vs_plain": phases,
+              "strong_decay_err": strong, "chained_equals_one_call": True,
               "strided_equals_contiguous": True,
-              "splits_equal": list(WK.SPLITS), "grad_rel_err": grad_err})
+              "heads_major_equals_rows": True, "grad_rel_err": grad_err,
+              "ptxas": self._wkv_ptxas()})
 
     # -- phase 10 ------------------------------------------------------------
     def _rwkv_forward_with(self, params, cfg, tokens, kind: str,
-                           layer_errs: list | None = None):
+                           layer_errs: list | None = None,
+                           dtypes: set | None = None):
         """Logits of ``forward`` with ``wkv_chunked`` replaced: by its plain
         version on the card (``"plain"``); by the kernel held against the
         plain version on each call's inputs, the kernel's result going on
         (``"compare"``, each call's relative errors appended to
-        ``layer_errs``); by the kernel with o scaled by 1 + 1e-6·N(0, 1)
+        ``layer_errs``, its (r, kernel o, plain o) dtypes added to
+        ``dtypes``); by the kernel with o scaled by 1 + 1e-6·N(0, 1)
         (``"noise"``); or by the kernel with the state lost at S/2
         (``"faulty"``: the second half starts from zero, a fault of the kind
         a chunk loop that restarts could make)."""
@@ -1524,31 +1648,37 @@ class Smoke:
         real = ops.wkv_chunked
         gen = torch.Generator(device="cuda").manual_seed(4)
 
-        def plain(r, k, v, w, u, state, chunk=64, interpret=False):
+        def plain(r, k, v, w, u, state, chunk=64, interpret=False,
+                  out_dtype=None):
             b, _, h, _ = r.shape
             o, st = WK.wkv_chunked_plain(
-                *WK.heads_to_rows(r, k, v, w, u, state), chunk)
+                *WK.heads_to_rows(r, k, v, w, u, state), chunk, out_dtype)
             return WK.rows_to_heads(o, st, b, h)
 
-        def compare(r, k, v, w, u, state, chunk=64, interpret=False):
-            o, st = real(r, k, v, w, u, state, chunk, interpret)
-            po, pst = plain(r, k, v, w, u, state, chunk)
+        def compare(r, k, v, w, u, state, chunk=64, interpret=False,
+                    out_dtype=None):
+            o, st = real(r, k, v, w, u, state, chunk, interpret, out_dtype)
+            po, pst = plain(r, k, v, w, u, state, chunk, out_dtype=out_dtype)
+            dtypes.add((r.dtype, o.dtype, po.dtype))
             layer_errs.append(
                 (float((o - po).abs().max()) / float(po.abs().max()),
                  float((st - pst).abs().max()) / float(pst.abs().max())))
             return o, st
 
-        def noise(r, k, v, w, u, state, chunk=64, interpret=False):
-            o, st = real(r, k, v, w, u, state, chunk, interpret)
+        def noise(r, k, v, w, u, state, chunk=64, interpret=False,
+                  out_dtype=None):
+            o, st = real(r, k, v, w, u, state, chunk, interpret, out_dtype)
             eps = torch.randn(o.shape, generator=gen, device=o.device)
             return o * (1 + 1e-6 * eps), st
 
-        def faulty(r, k, v, w, u, state, chunk=64, interpret=False):
+        def faulty(r, k, v, w, u, state, chunk=64, interpret=False,
+                   out_dtype=None):
             half = r.shape[1] // 2
             o1, _ = real(r[:, :half], k[:, :half], v[:, :half], w[:, :half],
-                         u, state, chunk, interpret)
+                         u, state, chunk, interpret, out_dtype)
             o2, s2 = real(r[:, half:], k[:, half:], v[:, half:], w[:, half:],
-                          u, torch.zeros_like(state), chunk, interpret)
+                          u, torch.zeros_like(state), chunk, interpret,
+                          out_dtype)
             return torch.cat([o1, o2], dim=1), s2
 
         ops.wkv_chunked = {"plain": plain, "compare": compare,
@@ -1611,10 +1741,14 @@ class Smoke:
         loss_s = time.perf_counter() - t0
         counts = self.counts()
         self.launches["wkv"] = counts["wkv"]
+        self.wkv_row["kernels_issued"] = WK.WKV_KERNELS
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         check(n1 == RWKV_LAUNCHES and counts["wkv"] - n1 == RWKV_LAUNCHES,
               f"{n1} and {counts['wkv'] - n1} wkv launches per forward, want "
               f"{RWKV_LAUNCHES}")
+        check(WK.WKV_KERNELS == 3 * counts["wkv"],
+              f"{WK.WKV_KERNELS} wkv kernels issued by {counts['wkv']} "
+              f"calls, want three a call")
         check(all(n == 0 for k, n in counts.items() if k != "wkv"),
               f"other kernels launched in the rwkv forward: {counts}")
         check(logits.shape == (1, RWKV_SEQ, cfg.padded_vocab)
@@ -1622,9 +1756,9 @@ class Smoke:
         check(bool(torch.isfinite(logits).all()) and math.isfinite(ce),
               "logits or loss not finite")
 
-        layer_errs = []
+        layer_errs, dtypes = [], set()
         again = self._rwkv_forward_with(params, cfg, tokens, "compare",
-                                        layer_errs)
+                                        layer_errs, dtypes)
         deterministic = torch.equal(again, logits)
         del again
         plain = self._rwkv_forward_with(params, cfg, tokens, "plain")
@@ -1657,16 +1791,22 @@ class Smoke:
               "layer_calls": len(layer_errs), "layer_o_rel_vs_plain": layer_o,
               "layer_state_rel_vs_plain": layer_state,
               "layer_rtol": RWKV_LAYER_RTOL,
+              "wkv_dtypes_r_o_plain": sorted(str(d) for d in dtypes),
               "second_forward_equal": deterministic,
               "max_abs_logit_diff_vs_plain": max_diff,
               "max_abs_logit_plain": scale, "logit_rel_vs_plain": rel,
               "logit_rtol": RWKV_LOGIT_RTOL, "top1_vs_plain": top1,
               "noise_1e-6_logit_rel": noise_rel, "profiles": profiles,
               "control_fault_logit_rel_vs_plain": control_rel,
-              "main_path_launches": counts, "peak_gb": peak_gb})
+              "main_path_launches": counts,
+              "wkv_kernels_issued": self.wkv_row["kernels_issued"],
+              "peak_gb": peak_gb})
         check(deterministic, "a second kernel forward differs")
         check(len(layer_errs) == RWKV_LAUNCHES,
               f"{len(layer_errs)} wkv calls in a forward")
+        check(dtypes == {(torch.bfloat16, torch.float32, torch.float32)},
+              f"the forward's wkv calls took (r, o, plain o) dtypes {dtypes}:"
+              f" want bf16 r, k, v in place and fp32 o")
         check(layer_o <= RWKV_LAYER_RTOL and layer_state <= RWKV_LAYER_RTOL,
               f"a layer's wkv differs from the plain version on its inputs: "
               f"o {layer_o}, state {layer_state}")

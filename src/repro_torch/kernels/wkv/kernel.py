@@ -1,8 +1,8 @@
-"""CUDA kernel for the chunked RWKV-6 WKV, and its plain torch version.
+"""CUDA kernels for the chunked RWKV-6 WKV, and their plain torch versions.
 
 ``csrc/wkv.cu`` replaces the TPU kernel
 ``repro/kernels/wkv/kernel.py::_wkv_kernel``: per (batch, head), over
-chunks in order with the (D, D) fp32 state carried across them,
+chunks with the (D, D) fp32 state carried across them,
 
     o     = tril_strict(P) V + diag((u ⊙ r)·k) V + (r ⊙ A_{t-1}) S_in
     S_out = A_C ⊙ S_in + Σ_s (k_s ⊙ A_C / A_s) v_s^T
@@ -13,10 +13,14 @@ exp of a non-positive difference of the cumulative log decay, so nothing
 overflows where the TPU kernel's r̃ = r·A, k̃ = k/A does (see the note at
 the top of the ``.cu``).
 
-``launch_wkv`` launches it on the current stream over (B, S, H, D)
-tensors read through their strides, and raises where there is no card; it
-never falls back to the plain version.  ``wkv_chunked_plain`` is that
-plain version: the same stable form, chunk by chunk, in torch, on the
+``launch_wkv`` issues three kernels on the current stream over (B, S, H, D)
+tensors read through their strides: the chunk states (each chunk's
+ΔS_c = Σ_s (k_s ⊙ A_C / A_s) v_s^T and A_C, into a workspace), the state
+scan (S_in of every chunk, in chunk order) and the chunk outputs.  It
+raises where there is no card; it never falls back to the plain versions.
+``wkv_chunk_states_plain``, ``wkv_state_scan_plain`` and
+``wkv_chunk_outputs_plain`` are the three kernels' plain versions, and
+``wkv_chunked_plain``, their composition, is the whole function's, on the
 reference's (BH, S, D) contract and on any device.
 
 Build: at first use, ``csrc/wkv.cu`` is compiled by ``nvcc`` into a shared
@@ -26,6 +30,7 @@ Importing this module builds nothing.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from pathlib import Path
 
@@ -33,17 +38,21 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches of the WKV kernel, counted by ``launch_wkv`` where it launches
-#: and nowhere else
+#: calls of ``launch_wkv`` that launched the three kernels (chunk states,
+#: state scan, chunk outputs), counted there and nowhere else: one a layer
 WKV_LAUNCHES = 0
+#: kernels those calls issued, as ``wkv_launch`` reports them
+WKV_KERNELS = 0
 _count_mu = threading.Lock()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: o's dtypes the kernels write, by the dtype of r, k, v
+OUT_DTYPES = {torch.float32: (torch.float32,),
+              torch.bfloat16: (torch.bfloat16, torch.float32)}
 CHUNKS = (16, 32, 64)
 HEAD_DIMS = (16, 32, 64)
-SPLITS = (4, 2, 1)
-_MIN_SLICE = 16             # v columns per block, at least
+MAX_CHUNKS = 65535          # the chunk kernels' grid.y (WKV_MAX_CHUNKS)
 
 NO_CARD = ("no CUDA device: the wkv kernel runs on the card; pass "
            "interpret=True (cfg.pallas_interpret) with CPU tensors to run its "
@@ -63,16 +72,17 @@ class _Args(ctypes.Structure):
         ("v", ctypes.c_void_p), ("w", ctypes.c_void_p),
         ("u", ctypes.c_void_p), ("s_in", ctypes.c_void_p),
         ("o", ctypes.c_void_p), ("s_out", ctypes.c_void_p),
+        ("ws", ctypes.c_void_p), ("a_end", ctypes.c_void_p),
         *[(f"{t}_s{ax}", ctypes.c_int64) for t in "rkvwo" for ax in "bsh"],
         ("heads", ctypes.c_int32), ("nbh", ctypes.c_int32),
-        ("seq", ctypes.c_int32), ("dv", ctypes.c_int32),
+        ("seq", ctypes.c_int32),
     ]
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     i32 = ctypes.c_int32
     lib.wkv_launch.argtypes = [ctypes.POINTER(_Args), i32, i32, i32, i32,
-                               ctypes.c_void_p]
+                               i32, ctypes.c_void_p, ctypes.POINTER(i32)]
     lib.wkv_launch.restype = ctypes.c_int
     return lib
 
@@ -126,13 +136,43 @@ def rows_to_heads(o, state, b: int, h: int):
         state.reshape(b, h, d, d)
 
 
-def n_split(bh: int, d: int, sm_count: int) -> int:
-    """v-column slices per (b, h): as many as keep every block on an SM of
-    its own (B·H·nsplit <= SMs), each slice at least 16 columns wide."""
-    for n in SPLITS:
-        if d % n == 0 and d // n >= _MIN_SLICE and bh * n <= sm_count:
-            return n
-    return 1
+def launch_plan(r, k, v, w, u, state, chunk: int = 64,
+                out_dtype=None) -> dict:
+    """The host's choices for ``launch_wkv`` over these (B, S, H, D)
+    tensors, on any device: o's dtype (default r's) and the shapes of the
+    fp32 buffers the wrapper allocates, the workspace (B·H, S / chunk, D,
+    D), which holds each chunk's ΔS and then its S_in, and ``a_end``
+    (B·H, S / chunk, D).  Raises ValueError on what the kernels do not
+    take."""
+    check_shapes(r, k, v, w, u, state, chunk)
+    if r.dim() != 4:
+        raise ValueError("launch_wkv takes (B, S, H, D) tensors")
+    if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"dtypes {r.dtype}, {k.dtype}, {v.dtype}: the kernel "
+                         f"takes r, k, v float32 or bfloat16, all alike")
+    out_dtype = r.dtype if out_dtype is None else out_dtype
+    if out_dtype not in OUT_DTYPES[r.dtype]:
+        raise ValueError(f"o {out_dtype} from r, k, v {r.dtype}: the kernel "
+                         f"writes {OUT_DTYPES[r.dtype]}")
+    b, s, h, d = r.shape
+    if chunk not in CHUNKS or d not in HEAD_DIMS:
+        raise ValueError(f"chunk {chunk} / head_dim {d}: the kernel takes "
+                         f"chunks {CHUNKS} and head dims {HEAD_DIMS}")
+    nc = s // chunk
+    if nc > MAX_CHUNKS:
+        raise ValueError(f"{nc} chunks: the kernel takes at most {MAX_CHUNKS}")
+    return {"out_dtype": out_dtype, "workspace": (b * h, nc, d, d),
+            "a_end": (b * h, nc, d)}
+
+
+def _aligned(t):
+    """``t`` where the kernels can read it four elements at a time (d
+    contiguous, the other strides multiples of 4, the start on a 4-element
+    boundary), else a contiguous copy."""
+    if t.stride(3) == 1 and all(st % 4 == 0 for st in t.stride()[:3]) \
+            and t.data_ptr() % (4 * t.element_size()) == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 # ---------------------------------------------------------------------------
@@ -146,105 +186,153 @@ def _require_cuda() -> None:
 
 
 def launch_wkv(r, k, v, w, u, state, chunk: int = 64,
-               heads_major: bool = False):
-    """Launch the kernel on the current stream over r, k, v, w (B, S, H, D)
-    (any strides, d contiguous), u (H, D) fp32 and state (B, H, D, D) fp32.
+               heads_major: bool = False, out_dtype=None):
+    """Launch the three kernels on the current stream over r, k, v, w
+    (B, S, H, D) (any strides, d contiguous), u (H, D) fp32 and state
+    (B, H, D, D) fp32.
 
-    Returns o (B, S, H, D) in r's dtype, stored (B, S, H, D) in memory, or
-    (B, H, S, D) with ``heads_major`` (then ``o[0].transpose(0, 1)`` is the
-    (BH, S, D) contract, contiguous), and the final state fp32.  Each (b, h)
-    is cut into ``n_split`` v-column slices, one block each; the output
-    does not depend on their number."""
-    global WKV_LAUNCHES
+    Returns o (B, S, H, D) in ``out_dtype`` (default r's dtype; bf16 r, k, v
+    may write fp32), stored (B, S, H, D) in memory, or (B, H, S, D) with
+    ``heads_major`` (then ``o[0].transpose(0, 1)`` is the (BH, S, D)
+    contract, contiguous), and the final state fp32.  The chunk states go
+    through a workspace of ``launch_plan``'s shape."""
+    return _launch(r, k, v, w, u, state, chunk, heads_major, out_dtype)[:2]
+
+
+def _launch(r, k, v, w, u, state, chunk, heads_major, out_dtype, phases=3):
+    """``launch_wkv``, issuing the first ``phases`` of the three kernels,
+    and returning (o, s_out, workspace, a_end) as they leave them: after
+    the first, the workspace holds each chunk's ΔS; after the second, its
+    S_in.  Counts one launch a call, and the kernels it issued."""
+    global WKV_LAUNCHES, WKV_KERNELS
     _require_cuda()
-    check_shapes(r, k, v, w, u, state, chunk)
-    if r.dim() != 4:
-        raise ValueError("launch_wkv takes (B, S, H, D) tensors")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
                     ("state", state)):
         if not t.is_cuda:
             raise ValueError(f"{name} is on {t.device}: the kernel takes CUDA "
                              f"tensors")
-    if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise ValueError(f"dtypes {r.dtype}, {k.dtype}, {v.dtype}: the kernel "
-                         f"takes r, k, v float32 or bfloat16, all alike")
+    plan = launch_plan(r, k, v, w, u, state, chunk, out_dtype)
     b, s, h, d = r.shape
-    if chunk not in CHUNKS or d not in HEAD_DIMS:
-        raise ValueError(f"chunk {chunk} / head_dim {d}: the kernel takes "
-                         f"chunks {CHUNKS} and head dims {HEAD_DIMS}")
-    nsplit = n_split(b * h, d, torch.cuda.get_device_properties(
-        r.device).multi_processor_count)
-    r, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (r, k, v))
-    w = w.to(torch.float32)
-    w = w if w.stride(3) == 1 else w.contiguous()
+    r, k, v = map(_aligned, (r, k, v))
+    w = _aligned(w.to(torch.float32))
     u = u.to(torch.float32).contiguous()
     state = state.to(torch.float32).contiguous()
+    out_dtype, dev = plan["out_dtype"], r.device
     if heads_major:
-        o = torch.empty((b, h, s, d), dtype=r.dtype,
-                        device=r.device).permute(0, 2, 1, 3)
+        o = torch.empty((b, h, s, d), dtype=out_dtype,
+                        device=dev).permute(0, 2, 1, 3)
     else:
-        o = torch.empty((b, s, h, d), dtype=r.dtype, device=r.device)
+        o = torch.empty((b, s, h, d), dtype=out_dtype, device=dev)
     s_out = torch.empty_like(state)
+    n_ws, n_a = math.prod(plan["workspace"]), math.prod(plan["a_end"])
+    buf = torch.empty(n_ws + n_a, dtype=torch.float32, device=dev)
+    ws = buf[:n_ws].view(plan["workspace"])
+    a_end = buf[n_ws:].view(plan["a_end"])
     args = _Args(r=r.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
                  w=w.data_ptr(), u=u.data_ptr(), s_in=state.data_ptr(),
-                 o=o.data_ptr(), s_out=s_out.data_ptr(), heads=h,
-                 nbh=b * h, seq=s, dv=d // nsplit)
+                 o=o.data_ptr(), s_out=s_out.data_ptr(), ws=ws.data_ptr(),
+                 a_end=a_end.data_ptr(), heads=h, nbh=b * h, seq=s)
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("o", o)):
         for ax, stride in zip("bsh", t.stride()[:3]):
             setattr(args, f"{name}_s{ax}", stride)
+    issued = ctypes.c_int32(0)
     rc = build.load(LIB).wkv_launch(
-        ctypes.byref(args), chunk, d, DTYPES[r.dtype], nsplit,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        ctypes.byref(args), chunk, d, DTYPES[r.dtype], DTYPES[out_dtype],
+        phases, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        ctypes.byref(issued))
     if rc != 0:
         raise RuntimeError(f"wkv launch (chunk {chunk}, head_dim {d}, "
-                           f"nsplit {nsplit}, {r.dtype}) failed: "
-                           f"cudaError {rc}")
+                           f"{r.dtype} -> {out_dtype}) failed: cudaError {rc}")
     with _count_mu:
         WKV_LAUNCHES += 1
-    return o, s_out
+        WKV_KERNELS += issued.value
+    return o, s_out, ws, a_end
 
 
 def reset_launch_counts() -> None:
-    global WKV_LAUNCHES
+    global WKV_LAUNCHES, WKV_KERNELS
     with _count_mu:
-        WKV_LAUNCHES = 0
+        WKV_LAUNCHES = WKV_KERNELS = 0
 
 
 # ---------------------------------------------------------------------------
-# plain version
+# plain versions
 # ---------------------------------------------------------------------------
 
 
-def wkv_chunked_plain(r, k, v, w, u, state, chunk: int = 64):
-    """Plain torch version of the kernel's function, on r's device: r, k, v,
-    w (BH, S, D), u (BH, D), state (BH, D, D).  A loop over the chunks, all
-    in fp32, every decay factor exp of a non-positive difference of the
-    in-chunk cumulative log decay.  Returns (o in r's dtype, final state
-    fp32)."""
+def _chunks(t, chunk: int):
+    """(BH, S, D) as (BH, S / chunk, chunk, D) fp32."""
+    bh, s, d = t.shape
+    return t.to(torch.float32).reshape(bh, s // chunk, chunk, d)
+
+
+def _cum_log_decay(w, chunk: int):
+    """L[t] = Σ_{u<=t} log w_u within each chunk: (BH, S / chunk, chunk, D)."""
+    return torch.cumsum(torch.log(_chunks(w, chunk)), dim=2)
+
+
+def wkv_chunk_states_plain(k, v, w, chunk: int = 64):
+    """Plain version of the chunk-states kernel: k, v, w (BH, S, D).  Per
+    chunk c, ΔS_c = Σ_s (k_s ⊙ exp(L[C-1] - L[s])) v_s^T (BH, S / chunk, D,
+    D) and A_c = exp(L[C-1]) (BH, S / chunk, D), fp32."""
+    L = _cum_log_decay(w, chunk)
+    kt = _chunks(k, chunk) * torch.exp(L[:, :, -1:] - L)
+    return kt.transpose(2, 3) @ _chunks(v, chunk), torch.exp(L[:, :, -1])
+
+
+def wkv_state_scan_plain(ws, a_end, state):
+    """Plain version of the scan kernel: ΔS (BH, nc, D, D) and A
+    (BH, nc, D) from ``wkv_chunk_states_plain``, state (BH, D, D).  In chunk
+    order, S_in of chunk c is S, then S <- A_c ⊙ S + ΔS_c, each step in
+    float64 and rounded to fp32 once, as the kernel's fmaf rounds (but for
+    the rare tie of a double rounding).  Returns (S_in of every chunk
+    (BH, nc, D, D), the final state) fp32."""
+    S = state.to(torch.float32)
+    s_in = []
+    for c in range(ws.shape[1]):
+        s_in.append(S)
+        S = torch.addcmul(ws[:, c].double(), a_end[:, c, :, None].double(),
+                          S.double()).to(torch.float32)
+    return torch.stack(s_in, dim=1), S
+
+
+def wkv_chunk_outputs_plain(r, k, v, w, u, s_in, chunk: int = 64,
+                            out_dtype=None):
+    """Plain version of the chunk-outputs kernel: r, k, v, w (BH, S, D), u
+    (BH, D), s_in (BH, S / chunk, D, D), the state before each chunk.  Per
+    chunk, o = P v + (r ⊙ exp(L[t-1])) S_in with the strictly-lower pair
+    matrix P[t, s] = Σ_d r[t,d] k[s,d] exp(L[t-1,d] - L[s,d]) and the bonus
+    diagonal (r ⊙ u)·k.  Returns o (BH, S, D) in ``out_dtype`` (default
+    r's)."""
+    L = _cum_log_decay(w, chunk)
+    Lp = torch.cat([torch.zeros_like(L[:, :, :1]), L[:, :, :-1]], dim=2)
+    rc, kc, vc = (_chunks(t, chunk) for t in (r, k, v))
+    uf = u.to(torch.float32)[:, None, :]
+    strict = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    eye = torch.eye(chunk, device=r.device)
+    outs = []
+    for c in range(L.shape[1]):
+        rr, kk = rc[:, c], kc[:, c]
+        diff = Lp[:, c, :, None, :] - L[:, c, None, :, :]   # (bh, t, s, d)
+        diff = diff.masked_fill(~strict[None, :, :, None], float("-inf"))
+        pmat = torch.einsum("btd,bsd,btsd->bts", rr, kk, torch.exp(diff))
+        pmat = pmat + eye * (rr * uf * kk).sum(-1)[:, :, None]
+        outs.append(pmat @ vc[:, c] + (rr * torch.exp(Lp[:, c])) @ s_in[:, c])
+    return torch.cat(outs, dim=1).to(out_dtype or r.dtype)
+
+
+def wkv_chunked_plain(r, k, v, w, u, state, chunk: int = 64, out_dtype=None):
+    """Plain torch version of the whole function, on r's device: r, k, v, w
+    (BH, S, D), u (BH, D), state (BH, D, D).  The three kernels' plain
+    versions in turn, in fp32 (the scan's steps each rounded once from
+    float64), every decay factor exp of a non-positive difference of the
+    in-chunk cumulative log decay.  Returns (o in ``out_dtype``, default
+    r's dtype; final state fp32)."""
     check_shapes(r, k, v, w, u, state, chunk)
     if r.dim() != 3:
         raise ValueError("wkv_chunked_plain takes (BH, S, D) tensors")
-    bh, s, d = r.shape
-    rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
-    logw = torch.log(w.to(torch.float32))
-    uf = u.to(torch.float32)[:, None, :]
-    S = state.to(torch.float32)
-    dev = r.device
-    strict = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                   device=dev), diagonal=-1)
-    eye = torch.eye(chunk, device=dev)
-    zero_row = torch.zeros((bh, 1, d), device=dev)
-    outs = []
-    for c0 in range(0, s, chunk):
-        rc, kc, vc = (t[:, c0:c0 + chunk] for t in (rf, kf, vf))
-        cl = torch.cumsum(logw[:, c0:c0 + chunk], dim=1)     # log A_t
-        clp = torch.cat([zero_row, cl[:, :-1]], dim=1)       # log A_{t-1}
-        diff = clp[:, :, None, :] - cl[:, None, :, :]        # (bh, t, s, d)
-        diff = diff.masked_fill(~strict[None, :, :, None], float("-inf"))
-        pmat = torch.einsum("btd,bsd,btsd->bts", rc, kc, torch.exp(diff))
-        pmat = pmat + eye * (rc * uf * kc).sum(-1)[:, :, None]
-        cend = cl[:, -1:]                                    # log A_C
-        outs.append(pmat @ vc + (rc * torch.exp(clp)) @ S)
-        S = torch.exp(cend).transpose(1, 2) * S \
-            + (kc * torch.exp(cend - cl)).transpose(1, 2) @ vc
-    return torch.cat(outs, dim=1).to(r.dtype), S
+    ws, a_end = wkv_chunk_states_plain(k, v, w, chunk)
+    s_in, s_out = wkv_state_scan_plain(ws, a_end, state)
+    return wkv_chunk_outputs_plain(r, k, v, w, u, s_in, chunk,
+                                   out_dtype), s_out

@@ -108,11 +108,14 @@ def _split_heads(t, h):
     return t.reshape(b, s, h, d // h)
 
 
-def _heads(p: RWKVTimeMix, cfg, x, x_prev):
-    """r, k, v (B, S, h, hd) fp32, w (B, S, h, hd) fp32 and the gate g."""
+def _heads(p: RWKVTimeMix, cfg, x, x_prev, cast: bool = True):
+    """r, k, v (B, S, h, hd) fp32 (in the model's dtype with ``cast``
+    False), w (B, S, h, hd) fp32 and the gate g."""
     h = cfg.rwkv_heads
     r, k, v, g, w = _projections(p, cfg, x, x_prev)
-    rh, kh, vh = (_split_heads(t, h).to(torch.float32) for t in (r, k, v))
+    rh, kh, vh = (_split_heads(t, h) for t in (r, k, v))
+    if cast:
+        rh, kh, vh = (t.to(torch.float32) for t in (rh, kh, vh))
     return rh, kh, vh, _split_heads(w, h), g
 
 
@@ -129,11 +132,17 @@ def _gate_out(p: RWKVTimeMix, x, o, g):
 
 def rwkv_mix_chunked(p: RWKVTimeMix, cfg, x, x_prev, state, chunk: int = 64):
     """Chunkwise-parallel WKV through the kernel.  x: (B,S,d); state:
-    (B,h,dk,dv) carried in.  Returns (out, last_x, new_state)."""
-    rh, kh, vh, wh, g = _heads(p, cfg, x, x_prev)
+    (B,h,dk,dv) carried in.  Returns (out, last_x, new_state).
+
+    r, k, v go in uncast, in the model's dtype (the kernel reads bf16 in
+    place, and its fp32 arithmetic sees the values the reference's cast
+    gives); o comes back fp32, as the reference computes it, and is first
+    rounded after the group norm."""
+    rh, kh, vh, wh, g = _heads(p, cfg, x, x_prev, cast=False)
     o, state_f = wkv_ops.wkv_chunked(rh, kh, vh, wh, p.bonus_u, state,
                                      chunk=chunk,
-                                     interpret=cfg.pallas_interpret)
+                                     interpret=cfg.pallas_interpret,
+                                     out_dtype=torch.float32)
     out = _gate_out(p, x, o, g)
     return out, x[:, -1, :].to(torch.float32), state_f.to(state.dtype)
 

@@ -91,6 +91,36 @@ def test_mix_chunked_matches_reference(mixes, chunk):
     _close(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mix_chunked_hands_wkv_its_projections_uncast(mixes, monkeypatch,
+                                                       dtype):
+    """The chunked time mix hands the wkv op r, k, v in the model's dtype,
+    as the projections come (bf16 for rwkv6-3b), w fp32, and asks for o in
+    fp32, as the reference computes it; since bf16 -> fp32 is exact, the
+    result is the one from r, k, v cast first, bit for bit."""
+    _, cfg, _, _, tm, _ = mixes
+    keep = {"decay_base", "bonus_u"}        # fp32 in every config
+    p = rwkv6.RWKVTimeMix(**{n: getattr(tm, n).detach().to(
+        torch.float32 if n in keep else dtype) for n in rwkv6.TMIX_NAMES})
+    x, xp, st = (torch.from_numpy(a) for a in _mix_inputs(9))
+    x = x.to(dtype)
+    seen = []
+    real = rwkv6.wkv_ops.wkv_chunked
+
+    def spy(r, k, v, w, u, state, chunk=64, interpret=False, out_dtype=None):
+        seen.append((r.dtype, k.dtype, v.dtype, w.dtype, out_dtype))
+        return real(r, k, v, w, u, state, chunk, interpret, out_dtype)
+
+    monkeypatch.setattr(rwkv6.wkv_ops, "wkv_chunked", spy)
+    out, _, state = rwkv6.rwkv_mix_chunked(p, cfg, x, xp, st, chunk=32)
+    assert seen == [(dtype, dtype, dtype, torch.float32, torch.float32)]
+    rh, kh, vh, wh, g = rwkv6._heads(p, cfg, x, xp)
+    assert rh.dtype == torch.float32
+    o, s_f = real(rh, kh, vh, wh, p.bonus_u, st, chunk=32, interpret=True)
+    assert torch.equal(out, rwkv6._gate_out(p, x, o, g))
+    assert torch.equal(state, s_f)
+
+
 @pytest.mark.parametrize("s", [1, 40, 128])
 def test_mix_scan_matches_reference(mixes, s):
     rcfg, cfg, rt, _, tm, _ = mixes

@@ -1,11 +1,14 @@
 """The port's chunked WKV (repro_torch.kernels.wkv) against the JAX
-package's, on the CPU: every case of tests/test_kernels_wkv.py in fp32 and
-bf16, the state carried across calls, the oracles, the strong-decay inputs
-where the reference's chunked form overflows, gradients, the (B, S, H, D)
-layout, and the kernel path raising where there is no card.  The reference
-runs its Pallas kernel in interpret mode; the port runs the plain version of
-its CUDA kernel (``interpret=True``).  Inputs are made by numpy from a
+package's, on the CPU: every case of tests/test_kernels_wkv.py in fp32,
+bf16 and bf16 in / fp32 out, the state carried across calls, the oracles,
+the strong-decay inputs where the reference's chunked form overflows,
+gradients, the (B, S, H, D) layout, the host's launch choices, and the
+kernel path raising where there is no card.  The reference
+runs its Pallas kernel in interpret mode; the port runs the plain versions
+of its CUDA kernels (``interpret=True``).  Inputs are made by numpy from a
 seed."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,12 +26,16 @@ CASES = [
     (1, 256, 32, 64),
     (4, 64, 64, 16),
 ]
-DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+#: name -> (reference dtype, port r/k/v dtype, port o dtype)
+DTYPES = {"float32": (jnp.float32, torch.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, torch.bfloat16),
+          "bfloat16-float32": (jnp.bfloat16, torch.bfloat16, torch.float32)}
 TOL = 1e-4
 #: bf16 o: both sides compute in fp32 and round o to bf16 once, so they
 #: differ by at most one bf16 ulp of the element, at most 2^-7 of the row's
 #: max |o|; against the fp32 oracle, half that.  TOL covers the fp32 part.
+#: bf16 r, k, v with fp32 o: the widening is exact, so TOL alone, against
+#: the reference's kernel on the widened inputs.
 BF16_ROW_RTOL = 2.0 ** -7
 #: uniform decays w = exp(-exp(dec)): 0.26, 0.19, 0.066, 6e-4
 STRONG_DECAYS = [0.3, 0.5, 1.0, 2.0]
@@ -77,18 +84,30 @@ def _row_excess(got, want, rtol):
 @pytest.mark.parametrize("bh,s,d,chunk", CASES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_matches_reference_kernel_and_recurrence(bh, s, d, chunk, dtype):
-    jdt, tdt = DTYPES[dtype]
+    jdt, tdt, odt = DTYPES[dtype]
     arrays = _inputs(0, bh, s, d)
-    o, st = wkv_chunked(*_torch(arrays, tdt), chunk=chunk, interpret=True)
-    o_k, s_k = ref_wkv_chunked(*_jax(arrays, jdt), chunk=chunk,
-                               interpret=True)
+    o, st = wkv_chunked(*_torch(arrays, tdt), chunk=chunk, interpret=True,
+                        out_dtype=odt)
+    rounded = [_np(t) for t in _torch(arrays, tdt)]
+    if odt == torch.float32:    # the reference writes o in r's dtype
+        o_k, s_k = ref_wkv_chunked(*map(jnp.asarray, rounded), chunk=chunk,
+                                   interpret=True)
+    else:
+        o_k, s_k = ref_wkv_chunked(*_jax(arrays, jdt), chunk=chunk,
+                                   interpret=True)
     # the oracle on the rounded inputs, as tests/test_kernels_wkv.py runs it
-    o_r, s_r = ref_wkv_ref(*(jnp.asarray(_np(t)) for t in
-                             _torch(arrays, tdt)))
-    assert o.dtype == tdt and o.shape == (bh, s, d)
+    o_r, s_r = ref_wkv_ref(*map(jnp.asarray, rounded))
+    assert o.dtype == odt and o.shape == (bh, s, d)
     assert st.dtype == torch.float32 and st.shape == (bh, d, d)
+    # the plain version is the three kernels' plain versions in turn
+    x = _torch(arrays, tdt)
+    ws, a_end = kernel.wkv_chunk_states_plain(*x[1:4], chunk)
+    s_in, s_out = kernel.wkv_state_scan_plain(ws, a_end, x[5])
+    o_p, st_p = kernel.wkv_chunked_plain(*x, chunk, odt)
+    assert torch.equal(o_p, kernel.wkv_chunk_outputs_plain(
+        *x[:5], s_in, chunk, odt)) and torch.equal(st_p, s_out)
     for want, rtol in ((o_k, BF16_ROW_RTOL), (o_r, BF16_ROW_RTOL / 2)):
-        if dtype == "float32":
+        if odt == torch.float32:
             assert np.abs(_np(o) - _np(want)).max() < TOL
         else:
             assert _row_excess(o, want, rtol) < TOL
@@ -158,6 +177,25 @@ def test_gradient_matches_autograd_through_the_recurrence():
         assert (a - b).abs().max() < 1e-5 * float(b.abs().max()), name
 
 
+@pytest.mark.parametrize("grad", [False, True])
+def test_autograd_node_only_where_a_gradient_is_wanted(grad):
+    """The forward skips the autograd node where no input wants a gradient
+    (its outputs equal all the same) and keeps it, so gradients flow, where
+    one does."""
+    x = _torch(_inputs(12, 2, 64, 16))
+    want_o, want_s = kernel.wkv_chunked_plain(*x, chunk=16)
+    if grad:
+        x[4].requires_grad_()
+    o, st = wkv_chunked(*x, chunk=16, interpret=True)
+    assert torch.equal(o.detach(), want_o) and torch.equal(st.detach(), want_s)
+    assert (o.grad_fn is not None) == grad == (st.grad_fn is not None)
+    with torch.no_grad():
+        assert wkv_chunked(*x, chunk=16, interpret=True)[0].grad_fn is None
+    if grad:
+        o.sum().backward()
+        assert x[4].grad is not None and torch.isfinite(x[4].grad).all()
+
+
 def test_heads_layout_equals_rows_layout():
     """The model's (B, S, H, D) layout, u (H, D), state (B, H, D, D), gives
     the (BH, S, D) contract's numbers with u tiled over the batch."""
@@ -207,12 +245,71 @@ def test_bad_shapes_raise(bad):
         kernel.wkv_chunked_plain(*args, chunk=chunk)
 
 
-@pytest.mark.parametrize("bh,d,sms,want", [
-    (40, 64, 132, 2),      # rwkv6-3b forward: 80 blocks
-    (160, 64, 132, 1),     # generate's prefill, batch 4
-    (4, 64, 132, 4),
-    (2, 16, 132, 1),       # a 16-column head is one slice
-    (1, 32, 132, 2),
+#: (B, S, H, D, chunk): rwkv6-3b's forward and generate's prefill (batch 4),
+#: tests/test_kernels_wkv.py's cases as one head each, and a B·H past
+#: 65535 (B·H is the chunk kernels' grid.x)
+PLAN_CASES = [(1, 4096, 40, 64, 64), (4, 512, 40, 64, 64),
+              (1, 128, 2, 16, 32), (1, 256, 1, 32, 64), (1, 64, 4, 64, 16),
+              (2048, 64, 40, 16, 64)]
+
+
+def _heads_inputs(b, s, h, d, dtype=torch.float32, device="meta"):
+    def t(*shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    return (t(b, s, h, d, dt=dtype), t(b, s, h, d, dt=dtype),
+            t(b, s, h, d, dt=dtype), t(b, s, h, d), t(h, d), t(b, h, d, d))
+
+
+@pytest.mark.parametrize("b,s,h,d,chunk", PLAN_CASES)
+def test_launch_plan_workspace(b, s, h, d, chunk):
+    """The workspace holds a (D, D) fp32 state per (b·h, chunk) -- 2,560 of
+    them, 42 MB, at rwkv6-3b's forward -- and a_end a D-vector of decays
+    per (b·h, chunk)."""
+    plan = kernel.launch_plan(*_heads_inputs(b, s, h, d), chunk)
+    nc = s // chunk
+    assert plan["workspace"] == (b * h, nc, d, d)
+    assert plan["a_end"] == (b * h, nc, d)
+    assert plan["out_dtype"] == torch.float32
+    if (b, s, h) == (1, 4096, 40):
+        assert nc * b * h == 2560
+        assert math.prod(plan["workspace"]) * 4 == 41_943_040
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype,want", [
+    (torch.float32, None, torch.float32),
+    (torch.float32, torch.float32, torch.float32),
+    (torch.bfloat16, None, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32, torch.float32),   # the model's call
 ])
-def test_split_keeps_one_block_per_sm(bh, d, sms, want):
-    assert kernel.n_split(bh, d, sms) == want
+def test_launch_plan_out_dtypes(in_dtype, out_dtype, want):
+    plan = kernel.launch_plan(*_heads_inputs(1, 64, 2, 16, in_dtype), 16,
+                              out_dtype)
+    assert plan["out_dtype"] == want
+
+
+@pytest.mark.parametrize("bad", ["out_fp32_to_bf16", "out_fp16", "in_fp16",
+                                 "k_dtype", "chunk", "head_dim", "rows",
+                                 "chunks"])
+def test_launch_plan_refuses(bad):
+    b, s, h, d, chunk, dt, out = 1, 64, 2, 16, 16, torch.float32, None
+    if bad == "out_fp32_to_bf16":
+        out = torch.bfloat16
+    elif bad == "out_fp16":
+        dt, out = torch.bfloat16, torch.float16
+    elif bad == "in_fp16":
+        dt = torch.float16
+    elif bad == "chunk":
+        chunk = 128
+    elif bad == "head_dim":
+        d = 128
+    elif bad == "chunks":     # S / chunk is the chunk kernels' grid.y
+        s = chunk * (kernel.MAX_CHUNKS + 1)
+    x = list(_heads_inputs(b, s, h, d, dt))
+    if bad == "k_dtype":
+        x[1] = x[1].to(torch.bfloat16)
+    if bad == "rows":
+        x = kernel.heads_to_rows(*x)
+    with pytest.raises(ValueError):
+        kernel.launch_plan(*x, chunk, out)
