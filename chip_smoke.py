@@ -26,6 +26,25 @@ Phases, each printing one JSON line:
                kernels' median times (CUDA events) beside their bounds
   evaluate     a heterogeneous EvaluationService batch on the card, held
                against the port's own CPU path and its binary frame
+  derive       the derive path: run_grid over the paper's measured grid
+               (6 domains x 11 models x 3 stages, MockLLMBackend, 10^6
+               ground-truth points, one in 100 checked) into a fresh
+               TieredStore under build/, its wall time split by the
+               obs.trace spans; the deployable cells exactly the 34 the
+               paper's tables mark compiled and 100% ordered, none of
+               menger3d, each perfect cell's complexity class the one its
+               logic implies; a second pass over the same store (198 hits,
+               no generate call, no validation); each of the 34 artifacts
+               launched through the map kernel at N = 5e8, bit-identical
+               to its domain's ground-truth launch and equal to its own
+               scalar map on 10^4 λ, the median of 10 single calls per
+               domain beside its byte bound, block counts and the paper's
+               A100 model beside the card's mapped and BB times; key
+               queries through an EvaluationService resolving over the
+               store, byte-equal to domain queries, and the three refusals
+               (not deployable, unknown, malformed) before any launch; the
+               dry-run entry point (repro_torch.launch.dryrun --domain-map
+               tri2d exits 0, menger3d exits 1)
   attention    the tri_attn kernel on both routes and in both grid modes
                against its plain versions (tests/test_kernels_tri_attn.py's
                sweep, GQA): the simt route (fp32; other bf16 shapes) mapped
@@ -106,10 +125,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM device-memory rate and dense bf16 tensor-core rate (NVIDIA data
-#: sheet): a kernel's bound is the larger of its bytes (each input read once,
-#: each output written once) at the one and its operations at the other
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+#: sheet, held in the port's ``core/energy.py``): a kernel's bound is the
+#: larger of its bytes (each input read once, each output written once) at
+#: the one and its operations at the other; the fp32 rate outside the tensor
+#: cores is for the wkv kernel's fp32 work on the LM path
+from repro_torch.core.energy import (  # noqa: E402
+    H100_BF16_FLOPS as BF16_FLOP_PER_S, H100_FP32_FLOPS as FP32_FLOP_PER_S,
+    H100_HBM_BW as HBM_BYTES_PER_S,
+)
 N_PAPER = 500_000_000          # benchmarks/block_dense.py:23
 CHUNK = 1 << 26                # λ per plain-version chunk (int64 temps fit)
 REPS = 10                      # timed runs per kernel (median reported)
@@ -190,9 +213,6 @@ TOP1_MIN = 0.95
 #: carry that to the logits.  Bound: max |Δ logit| <= 5e-2 · max |logit|.
 LOGIT_RTOL = 5e-2
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
-#: the fp32 rate outside the tensor cores (NVIDIA data sheet), for the wkv
-#: kernel's fp32 work on the LM path
-FP32_FLOP_PER_S = 67e12
 #: tests/test_kernels_wkv.py's cases as (B·H, S, D, chunk), then the LM
 #: path's shapes: rwkv6-3b's 40 heads at S = 4096 (forward) and at batch 4,
 #: S = 512 (generate's prefill).  fp32 o and state are held to that test's
@@ -237,6 +257,22 @@ RWKV_LOGIT_RTOL = 0.15
 RWKV_MIX_RTOL = 2.0 ** -6
 #: the first decode step (the scan, from prefill's state) against a forward
 #: over prompt + token (the scan all the way): other evaluation orders, the
+#: the derive phase validates each candidate against the reference's own
+#: 10^6 ground-truth points (core/pipeline.py's derive_mapping default),
+#: checking one point in DERIVE_SAMPLE_EVERY
+DERIVE_N_VALIDATE = 1_000_000
+DERIVE_SAMPLE_EVERY = 100
+#: λ spread over [0, N_PAPER), the last included, at which each deployed
+#: artifact's own scalar map is held against the kernel's coordinates
+DERIVE_LAMBDAS = 10_000
+#: the complexity class each replayed logic implies: the registry's class
+#: of the variant map of that name (core/maps/variants.py); the bitwise
+#: digit maps loop once per base-B digit; binsearch_linear's doubling
+#: search is followed by a linear layer scan, which dominates
+IMPLIED_CLASS = {"analytical": "O(1)", "sqrt_loop": "O(1)",
+                 "approx_if": "O(1)", "cbrt_loop": "O(1)",
+                 "binsearch": "O(log N)", "bitwise": "O(log N)",
+                 "linear": "O(N^1/3)", "binsearch_linear": "O(N^1/3)"}
 #: same amplification as RWKV_LOGIT_RTOL; measured 0.128 of max |logit| on
 #: an H100, gate about twice that
 RWKV_DECODE_RTOL = 0.3
@@ -270,6 +306,7 @@ class Smoke:
         self.attn_row = {}
         self.attn_simt_row = {}
         self.wkv_row = {}
+        self.paper_ms = {}
 
     # -- helpers -------------------------------------------------------------
     def sync(self):
@@ -599,6 +636,7 @@ class Smoke:
             r["ms"] = self.time_ms(r.pop("call"))
             r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
             r["over_bound"] = r["ms"] / r["bound_ms"]
+            self.paper_ms[name] = {"mapped_ms": r["ms"]}
             emit({"phase": "paper_scale", "kernel": "map_kernel",
                   "domain": name, "card": self.card, **r})
             t = self.totals["map_kernel"]
@@ -613,6 +651,9 @@ class Smoke:
             r["mapped_ms"] = self.time_ms(r.pop("mapped_call"))
             r["mapped_bound_ms"] = r["mapped_bytes"] / HBM_BYTES_PER_S * 1e3
             r["bb_over_mapped"] = r["ms"] / r["mapped_ms"]
+            self.paper_ms[name].update(
+                bb_ms=r["ms"], bb_extent=r["extent"],
+                bb_box_mapped_ms=r["mapped_ms"], bb_box_points=r["mapped_n"])
             emit({"phase": "paper_scale", "kernel": "membership_kernel",
                   "domain": name, "card": self.card, **r})
             t = self.totals["membership_kernel"]
@@ -726,6 +767,280 @@ class Smoke:
               "cold_batch_s": cold_s, "warm_batch_s": warm_s,
               "frame_bytes": len(frame), "launches": launches,
               "stats": ev.stats_dict()})
+
+    # -- phase: derive --------------------------------------------------------
+    def _derive_grid(self, run_grid, backend, store, buf, trace_id):
+        """One run_grid pass over the paper's measured grid under an active
+        trace; (results, wall s, {span name: [count, ms]})."""
+        from repro_torch.obs import trace as obs_trace
+
+        token = obs_trace.activate(buf, trace_id)
+        try:
+            t0 = time.perf_counter()
+            grid = run_grid(backend_factory=backend,
+                            n_validate=DERIVE_N_VALIDATE,
+                            sample_every=DERIVE_SAMPLE_EVERY, cache=store)
+            wall = time.perf_counter() - t0
+        finally:
+            obs_trace.deactivate(token)
+        entry = buf.get(trace_id) or {"spans": [], "dropped_spans": 0}
+        check(entry["dropped_spans"] == 0, "the trace dropped spans")
+        spans = {}
+        for sp in entry["spans"]:
+            c = spans.setdefault(sp["name"], [0, 0.0])
+            c[0] += 1
+            c[1] += sp["duration_ms"]
+        return grid, wall, spans
+
+    def derive(self) -> None:
+        """The derive path: the paper's grid through run_grid into a fresh
+        store, a second pass served from it, each deployable artifact
+        launched through the map kernel at N = 5e8, key queries and the
+        dry-run entry point."""
+        import os
+        import shutil
+
+        import numpy as np
+
+        from repro_torch.core import paper_tables as pt
+        from repro_torch.core.backends import MockLLMBackend, mock_behavior
+        from repro_torch.core.compile_cache import CompileCache
+        from repro_torch.core.pipeline import result_from_record, run_grid
+        from repro_torch.core.store import build_store
+        from repro_torch.launch import analytic
+        from repro_torch.obs.trace import TraceBuffer
+        from repro_torch.serving.evaluate import MAX_POINTS, EvaluationService
+
+        torch, K, ops = self.torch, self.K, self.ops
+        t_phase = time.perf_counter()
+        work = ROOT / "build" / "derive"
+        shutil.rmtree(work, ignore_errors=True)
+        store = build_store(work / "store")
+        generated = [0]
+
+        class Counted:
+            """MockLLMBackend counting its generate calls."""
+
+            def __init__(self, model):
+                self._mock = MockLLMBackend(model)
+                self.name = model
+                self.cache_fingerprint = self._mock.cache_fingerprint
+
+            def generate(self, prompt, *, meta):
+                generated[0] += 1
+                return self._mock.generate(prompt, meta=meta)
+
+        # -- the grid, twice over one store
+        buf = TraceBuffer(max_traces=4, max_spans=10_000)
+        grid, wall1, spans1 = self._derive_grid(run_grid, Counted, store,
+                                                buf, "1" * 32)
+        gen1, generated[0] = generated[0], 0
+        grid2, wall2, spans2 = self._derive_grid(run_grid, Counted, store,
+                                                 buf, "2" * 32)
+        cells = len(pt.ACCURACY) * len(pt.MODELS) * len(pt.STAGES)
+        check(len(grid) == cells == 198, f"{len(grid)} cells, want 198")
+        check(gen1 == cells, f"first pass: {gen1} generate calls")
+        check(sum(r.cache_hit for r in grid2.values()) == cells
+              and generated[0] == 0 and "validation" not in spans2
+              and "inference" not in spans2,
+              f"second pass: {sum(r.cache_hit for r in grid2.values())} "
+              f"hits, {generated[0]} generate calls, spans {spans2}")
+        want = {(d, m, s) for d in pt.ACCURACY for m in pt.MODELS
+                for s, (ordered, _, compiled)
+                in zip(pt.STAGES, pt.ACCURACY[d][m])
+                if compiled and ordered >= 100.0}
+        arts = {k: r.artifact for k, r in grid.items()
+                if r.artifact is not None and r.artifact.deployable}
+        check(set(arts) == want and len(want) == 34,
+              f"deployable cells {sorted(set(arts) ^ want)} differ from the "
+              f"paper's 34")
+        check(not any(k[0] == "menger3d" for k in arts),
+              "a menger3d cell is deployable")
+        for k, r in grid.items():
+            if r.perfect:
+                logic = mock_behavior(*k)[0]
+                check(r.complexity_class == IMPLIED_CLASS[logic],
+                      f"{k}: class {r.complexity_class}, {logic} implies "
+                      f"{IMPLIED_CLASS[logic]}")
+        for k, r in grid2.items():
+            check(r.cache_key == grid[k].cache_key
+                  and r.report == grid[k].report, f"{k}: second pass differs")
+        by_domain = {}
+        for k in sorted(arts):
+            by_domain.setdefault(k[0], []).append(k)
+        span_s = {name: ms / 1e3 for name, (_, ms) in spans1.items()}
+        store_s = sum(v for n, v in span_s.items() if n.startswith("store_"))
+        emit({"phase": "derive", "part": "grid", "card": self.card,
+              "cells": cells, "deployable": len(arts),
+              "deployable_by_domain": {d: len(v)
+                                       for d, v in by_domain.items()},
+              "n_validate": DERIVE_N_VALIDATE,
+              "sample_every": DERIVE_SAMPLE_EVERY,
+              "first_pass_s": wall1, "generate_calls": gen1,
+              "spans": {n: {"count": c, "s": ms / 1e3}
+                        for n, (c, ms) in spans1.items()},
+              "inference_s": span_s.get("inference", 0.0),
+              "validation_s": span_s.get("validation", 0.0),
+              "validation_share": span_s.get("validation", 0.0) / wall1,
+              "store_load_s": store_s,
+              "other_s": wall1 - span_s.get("inference", 0.0)
+              - span_s.get("validation", 0.0) - store_s,
+              "second_pass_s": wall2,
+              "second_pass_hits": sum(r.cache_hit for r in grid2.values()),
+              "second_pass_generate_calls": generated[0],
+              "second_pass_spans": {n: c for n, (c, _) in spans2.items()},
+              "store": store.stats()})
+
+        # -- deployment: each artifact through the map kernel at N = 5e8
+        cache = CompileCache(max_entries=64)
+        lams = np.unique(np.linspace(0, N_PAPER - 1, DERIVE_LAMBDAS)
+                         .astype(np.int64))
+        lam_dev = torch.as_tensor(lams, device="cuda")
+        launches = 0
+        for name, keys in by_domain.items():
+            d = self.DOMAINS[name]
+            _, padded, ndigits = ops.map_plan(name, N_PAPER, 1024)
+            gt = ops.mapped_executable(name, padded, 1024, ndigits, False,
+                                       compile_cache=cache)()
+            first = None
+            for k in keys:
+                art = arts[k]
+                _, apad, adig = ops.map_plan(art, N_PAPER, 1024)
+                call = ops.mapped_executable(art, apad, 1024, adig, False,
+                                             compile_cache=cache)
+                n0 = K.MAP_LAUNCHES
+                out = call()
+                launches += K.MAP_LAUNCHES - n0
+                check(K.MAP_LAUNCHES - n0 == 1,
+                      f"{k}: {K.MAP_LAUNCHES - n0} map launches")
+                check((apad, adig) == (padded, ndigits)
+                      and torch.equal(out, gt),
+                      f"{k}: the artifact's launch differs from {name}'s "
+                      f"ground truth")
+                got = out[:, lam_dev].cpu().numpy().T
+                scalar = art.scalar_fn()
+                bad = [int(lam) for lam, row in zip(lams, got)
+                       if tuple(int(v) for v in row[:d.dim])
+                       != tuple(scalar(int(lam)))]
+                check(not bad, f"{k}: kernel differs from the artifact's "
+                      f"scalar map at λ {bad[:5]}")
+                del out
+                first = first or call
+                emit({"phase": "derive", "part": "artifact",
+                      "cell": list(k), "key": art.cache_key,
+                      "logic": art.logic,
+                      "complexity_class": art.complexity_class,
+                      "lambdas_checked": len(lams),
+                      "block_counts": ops.block_counts(art, N_PAPER, 256),
+                      "a100_model": analytic.artifact_deployment_analytics(
+                          art, N_PAPER),
+                      "card": self.card,
+                      "card_mapped_ms": self.paper_ms[name]["mapped_ms"],
+                      "card_bb": {key: self.paper_ms[name][key]
+                                  for key in ("bb_ms", "bb_extent",
+                                              "bb_box_mapped_ms",
+                                              "bb_box_points")}})
+            del gt
+            self.sync()
+            ms = self.time_ms(first)
+            bound = d.dim * padded * 4 / HBM_BYTES_PER_S * 1e3
+            emit({"phase": "derive", "part": "deploy", "domain": name,
+                  "card": self.card, "artifacts": len(keys),
+                  "n": N_PAPER, "padded": padded, "ms": ms,
+                  "bound_ms": bound, "over_bound": ms / bound,
+                  "ground_truth_ms": self.paper_ms[name]["mapped_ms"]})
+        check(launches == len(arts),
+              f"{launches} map launches for {len(arts)} artifacts")
+
+        # -- evaluation by content address
+        def resolver(key):
+            rec = store.load(key)
+            if rec is None:
+                return None
+            return result_from_record(rec, self.DOMAINS[rec["domain"]],
+                                      key).artifact
+
+        far = (1 << 31) + 12345
+        keys = sorted(arts)
+        tri = next(k for k in keys if k[0] == "tri2d")
+        by_key = [{"key": arts[k].cache_key, "n_points": MAX_POINTS}
+                  for k in keys]
+        by_key.append({"key": arts[tri].cache_key, "n_points": 1 << 20,
+                       "start": far})
+        domain_of = {arts[k].cache_key: k[0] for k in keys}
+        by_dom = [{"domain": domain_of[q["key"]],
+                   **{f: v for f, v in q.items() if f != "key"}}
+                  for q in by_key]
+        ev = EvaluationService(artifact_resolver=resolver,
+                               compile_cache=CompileCache(max_entries=128))
+        n0 = K.MAP_LAUNCHES
+        t0 = time.perf_counter()
+        res_key, meta_key = ev.evaluate_batch(by_key)
+        key_s = time.perf_counter() - t0
+        key_launches = K.MAP_LAUNCHES - n0
+        res_dom, _ = ev.evaluate_batch(by_dom)
+        for q, a, b in zip(by_key, res_key, res_dom):
+            check(a["coords"].dtype == b["coords"].dtype
+                  and a["coords"].tobytes() == b["coords"].tobytes(),
+                  f"{q}: key and domain query differ")
+        check(ev.batch_cache_key(by_key)[1]
+              == tuple(sorted({arts[k].cache_key for k in keys})),
+              "batch_cache_key does not list the artifact keys")
+        menger = next(r.cache_key for k, r in grid.items()
+                      if k[0] == "menger3d" and r.artifact is not None)
+        refusals = {}
+        for what, q, exc in (
+                ("not deployable", {"key": menger, "n_points": 10},
+                 ValueError),
+                ("unknown", {"key": "0" * 64, "n_points": 10}, KeyError),
+                ("malformed", {"key": "not-hex", "n_points": 10},
+                 ValueError)):
+            n0 = K.MAP_LAUNCHES
+            try:
+                ev.evaluate_batch([by_key[0], q])
+            except exc as e:
+                refusals[what] = f"{type(e).__name__}: {e}"
+            else:
+                raise AssertionError(f"a {what} key was not refused")
+            check(K.MAP_LAUNCHES == n0, f"a {what} key launched a kernel")
+        emit({"phase": "derive", "part": "evaluate_by_key",
+              "card": self.card, "queries": len(by_key),
+              "groups": meta_key["groups"], "launches": key_launches,
+              "batch_s": key_s, "refusals": refusals})
+
+        # -- the dry-run entry point, as a user runs it
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "REPRO_ARTIFACT_CACHE": str(work / "dryrun_store")}
+        out_dir = work / "dryrun"
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--domain-map", name, "--out", str(out_dir)],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for name in ("tri2d", "menger3d")}
+        done = {}
+        for name, proc in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            done[name] = (proc.returncode, stdout.strip(),
+                          stderr.strip().splitlines()[-1:])
+        rec_path = out_dir / "domain_map__tri2d__OSS:120b.json"
+        check(done["tri2d"][0] == 0 and rec_path.exists()
+              and json.loads(rec_path.read_text())["status"] == "ok",
+              f"dryrun --domain-map tri2d: {done['tri2d']}")
+        check(done["menger3d"][0] == 1
+              and "not deployable" in " ".join(done["menger3d"][2]),
+              f"dryrun --domain-map menger3d: {done['menger3d']}")
+        emit({"phase": "derive", "part": "dryrun", "card": self.card,
+              "tri2d": {"rc": done["tri2d"][0], "stdout": done["tri2d"][1],
+                        "record": json.loads(rec_path.read_text())},
+              "menger3d": {"rc": done["menger3d"][0],
+                           "stderr": done["menger3d"][2]},
+              "phase_s": time.perf_counter() - t_phase})
 
     # -- phase 6 -------------------------------------------------------------
     def _attn_inputs(self, b, h, hk, s, d, dtype, gen):
@@ -2016,6 +2331,7 @@ def main() -> int:
     smoke.kernels()
     smoke.paper_scale()
     smoke.evaluate()
+    smoke.derive()
     smoke.attention()
     smoke.lm_forward()
     smoke.lm_generate()

@@ -9,9 +9,10 @@ launcher (the zero-argument thunk ``build_map_call`` /
     (spec fingerprint, tier, shape, block_n, ndigits, dtype,
      interpret, device kind)
 
-where the spec fingerprint is a registry identity (``domain:<name>`` /
-``entry:<domain>:<logic>``).  A repeat evaluation with an identical key
-costs one dict hit plus the launch.
+where the spec fingerprint is the artifact's content address for
+LLM-derived maps (``artifact:<cache_key>``) and a registry identity for
+ground-truth geometry (``domain:<name>`` / ``entry:<domain>:<logic>``).  A
+repeat evaluation with an identical key costs one dict hit plus the launch.
 
 Persistence: the JAX package serializes compiled executables to disk with
 ``jax.export``.  A bound launcher has no such form (the CUDA library itself
@@ -58,9 +59,19 @@ def device_kind() -> str:
 
 
 def spec_fingerprint(spec) -> str:
-    """Identity of a map spec, for launcher keying: ``entry:<domain>:<logic>``
-    for a ``MapEntry``, ``domain:<name>`` for a ``str`` / ``Domain``."""
-    from repro_torch.core.artifact import resolve_spec
+    """Identity of a map spec, for launcher keying.
+
+    * ``MappingArtifact`` -> ``artifact:<content address>`` (falls back to a
+      digest of the validated source when the artifact never saw a store);
+    * ``MapEntry``        -> ``entry:<domain>:<logic>``;
+    * ``str`` / ``Domain``-> ``domain:<name>`` (ground-truth geometry).
+    """
+    from repro_torch.core.artifact import MappingArtifact, resolve_spec
+
+    if isinstance(spec, MappingArtifact):
+        base = spec.cache_key or hashlib.sha256(
+            spec.source.encode()).hexdigest()
+        return f"artifact:{base}"
 
     domain, logic = resolve_spec(spec)
     if logic is None:

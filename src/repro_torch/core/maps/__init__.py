@@ -1,14 +1,14 @@
 """Ground-truth mapping functions lambda -> coordinates (Table I).
 
 Facade over the per-tier modules — ``dense`` (closed-form Table-I maps),
-``fractal`` (base-B digit engine + per-geometry plugins), ``simplex`` (the
-m-simplex family) and ``embedded`` (the embedded-2D-fractal family).
-Importing this package registers every built-in map into the
-:mod:`repro_torch.core.registry`; the dispatch helpers below
-(``np_map``/``torch_map``) and the compatibility dicts (``SCALAR_MAPS``/
-``VARIANT_MAPS``) all resolve through that registry.  The LLM-derived logic
-classes (``variants``) are not ported yet, so ``VARIANT_MAPS`` holds the
-ground-truth entries only.
+``fractal`` (base-B digit engine + per-geometry plugins), ``variants``
+(the Tables VIII/IX logic classes), ``simplex`` (the m-simplex family) and
+``embedded`` (the embedded-2D-fractal family).  Importing this package
+registers every built-in map into the :mod:`repro_torch.core.registry`; the
+dispatch helpers below (``np_map``/``torch_map``) and the compatibility dicts
+(``SCALAR_MAPS``/``VARIANT_MAPS``) all resolve through that registry, so
+``VARIANT_MAPS`` holds the ground-truth entries and the variant logic
+classes under the same ``(domain, logic)`` keys as the JAX package's.
 """
 from __future__ import annotations
 
@@ -32,6 +32,10 @@ from repro_torch.core.maps.fractal import (  # noqa: F401
 from repro_torch.core.maps.simplex import (  # noqa: F401
     map_msimplex, np_map_msimplex, register_simplex_domain,
     torch_map_msimplex, unmap_msimplex,
+)
+from repro_torch.core.maps.variants import (  # noqa: F401
+    map_pyramid3d_binsearch, map_pyramid3d_cbrt_loop, map_pyramid3d_linear,
+    map_tri2d_approx_if, map_tri2d_binsearch, map_tri2d_sqrt_loop,
 )
 from repro_torch.core.registry import REGISTRY
 

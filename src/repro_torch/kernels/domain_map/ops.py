@@ -1,7 +1,9 @@
 """Launch wrappers for the domain-map kernels + block-waste accounting.
 
-Every entry point takes a *map spec* — a domain name, a ``Domain`` or a
-registry ``MapEntry`` — and resolves the geometry through the MapRegistry.
+Every entry point takes a *map spec* — a domain name, a ``Domain``, a
+registry ``MapEntry`` or a validated ``MappingArtifact`` — and resolves the
+geometry through the MapRegistry.  An artifact that is not deployable
+(validated less than 100% ordered) raises before any launch.
 
 ``interpret`` is the device choice: ``False`` (the default) launches the
 CUDA kernel and raises where there is no card; ``True`` runs the kernel's

@@ -1,1 +1,2 @@
-"""Launchers of the port: so far the LM demo (``serve``)."""
+"""Launchers of the port: the LM demo (``serve``), the domain-map dry run
+(``dryrun``) and the deployment analytics it reports (``analytic``)."""

@@ -1,8 +1,9 @@
 """EvaluationService — the batched map-evaluation hot path.
 
-It accepts batches of heterogeneous queries — each a ``(domain, tier,
-λ-range / box extent)`` — and executes them the way deployed kernels want
-to be executed:
+Derivation produces mapping *artifacts*; this service runs them.  It
+accepts batches of heterogeneous queries — each a ``(domain | artifact
+key, tier, λ-range / box extent)`` — and executes them the way deployed
+kernels want to be executed:
 
   * **executable grouping** — queries that resolve to the same launcher
     family (same spec identity, tier, block size, interpret mode) are
@@ -30,18 +31,19 @@ Query schema (one dict per query; the wire form of ``POST /v1/evaluate``):
      "interpret": null}            # optional; null/false: the CUDA kernel,
                                    # true: its plain version on the CPU
 
-``domain`` queries run the registry's ground-truth geometry.  ``key``
-queries name a derived artifact by content address; the artifact store is
-not ported yet, so this evaluator answers them as the JAX package's does
-with no store attached.  ``"interpret": null`` never picks the CPU on its
-own: without a card such a query fails and names ``"interpret": true``.
+``key`` queries resolve a *derived* artifact by content address through
+the ``artifact_resolver`` (the paper's Phase-4 integration: only a
+deployable — 100%-ordered — artifact may drive the mapped kernel).
+``domain`` queries run the registry's ground-truth geometry.
+``"interpret": null`` never picks the CPU on its own: without a card such a
+query fails and names ``"interpret": true``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import threading
-from typing import Iterable, Iterator, Sequence
+from typing import Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 
@@ -87,7 +89,7 @@ class _Plan:
     """One admitted query, fully resolved for grouping."""
 
     index: int
-    spec: object              # str domain name
+    spec: object              # str domain name | MappingArtifact
     domain: Domain
     tier: str
     n_points: int             # valid points requested (box total for BB)
@@ -120,11 +122,17 @@ class _Plan:
 
 
 class EvaluationService:
-    """Batched evaluation of thread maps over cached kernel launchers."""
+    """Batched evaluation of thread maps over cached kernel launchers.
 
-    def __init__(self, compile_cache=cc.USE_DEFAULT,
+    ``artifact_resolver`` (optional) maps a 64-hex content address to a
+    :class:`~repro_torch.core.artifact.MappingArtifact` (or None) — wire
+    queries carrying ``key`` instead of ``domain`` resolve through it."""
+
+    def __init__(self, artifact_resolver: Callable | None = None,
+                 compile_cache=cc.USE_DEFAULT,
                  max_points: int = MAX_POINTS,
                  default_block_n: int = 1024):
+        self.artifact_resolver = artifact_resolver
         self.cache = cc.resolve(compile_cache)
         self.max_points = max_points
         self.default_block_n = default_block_n
@@ -138,9 +146,19 @@ class EvaluationService:
             if not isinstance(key, str) or not valid_key(key):
                 raise ValueError(
                     "'key' must be a 64-hex artifact content address")
-            raise ValueError(
-                "this evaluator cannot resolve artifact keys "
-                "(no store attached)")
+            if self.artifact_resolver is None:
+                raise ValueError(
+                    "this evaluator cannot resolve artifact keys "
+                    "(no store attached)")
+            art = self.artifact_resolver(key)
+            if art is None:
+                raise KeyError(key)
+            if not art.deployable:
+                raise ValueError(
+                    f"artifact {key[:12]}… is not deployable: "
+                    f"ordered={art.report.ordered_pct:.2f}% "
+                    f"(error={art.report.error!r})")
+            return art, art.domainobj
         domain = q.get("domain")
         if not isinstance(domain, str):
             raise ValueError("query must carry string 'domain' or 'key'")
@@ -229,9 +247,9 @@ class EvaluationService:
 
         Results arrive in query order; each carries its coordinates/mask as
         a numpy array plus grouping/caching provenance.  A malformed query
-        fails the whole batch (``ValueError``); an unknown domain raises
-        ``KeyError``; a kernel query where there is no card raises
-        ``RuntimeError`` — all before any launch."""
+        fails the whole batch (``ValueError``); an unknown domain or
+        artifact key raises ``KeyError``; a kernel query where there is no
+        card raises ``RuntimeError`` — all before any launch."""
         if not queries:
             raise ValueError("empty query batch")
         try:
@@ -315,13 +333,15 @@ class EvaluationService:
         λ-range/extent, so equal keys guarantee byte-identical answers.
         ``None`` when any query fails admission — the caller falls through
         to :meth:`evaluate_batch`, which raises the authoritative error.
-        No artifact keys until the artifact store is ported.  Planning is
-        pure resolution (dict lookups + arithmetic, no launch)."""
+        Planning is pure resolution (dict lookups + arithmetic, no
+        launch)."""
         try:
             plans = [self._plan(i, q) for i, q in enumerate(queries)]
         except Exception:  # noqa: BLE001 — identity only, never authoritative
             return None
-        return tuple(p.wire_key for p in plans), ()
+        arts = sorted({p.fingerprint.split(":", 1)[1] for p in plans
+                       if p.fingerprint.startswith("artifact:")})
+        return tuple(p.wire_key for p in plans), tuple(arts)
 
     def cache_generation(self) -> int:
         """Compile-cache eviction count — the generation stamp that expires

@@ -56,3 +56,13 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.kernels.wkv.kernel",
                  "repro_torch.kernels.wkv.ops", "repro_torch.models.rwkv6"):
         assert name in seen["modules"]
+    # the derive path
+    for name in ("repro_torch.core.paper_tables",
+                 "repro_torch.core.synthesis", "repro_torch.core.complexity",
+                 "repro_torch.core.validate", "repro_torch.core.maps.variants",
+                 "repro_torch.core.store", "repro_torch.core.artifact",
+                 "repro_torch.core.energy", "repro_torch.core.backends",
+                 "repro_torch.core.pipeline", "repro_torch.obs",
+                 "repro_torch.obs.metrics", "repro_torch.obs.trace",
+                 "repro_torch.launch.analytic", "repro_torch.launch.dryrun"):
+        assert name in seen["modules"]
