@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --index-widths   # device, build, index_widths only
+    python3 chip_smoke.py --sharded-sweep  # device, build, the sweep's split
 
 Phases, each printing one JSON line:
 
@@ -45,6 +46,21 @@ Phases, each printing one JSON line:
                (not deployable, unknown, malformed) before any launch; the
                dry-run entry point (repro_torch.launch.dryrun --domain-map
                tri2d exits 0, menger3d exits 1)
+  serve        evaluation serving: the asyncio and the threaded frontend in
+               process, each a MappingService (mock backend behind the
+               batching queue) over a fresh TieredStore under build/; per
+               frontend the evaluate batch as a binary frame through
+               RemoteMappingService, cold, warm and off the wire LRU,
+               bit-identical to the in-process batch with equal metadata;
+               POST /v1/derive of the paper's 34 deployable cells, then key
+               queries at 2^21 points equal to the domain queries, and the
+               three refusals (400, 404, 400) with no launch; a binary sweep
+               stream over the 12 domains x [2^20, 2^21]; four concurrent
+               clients; the sweep's λ-range split (two shards on one card,
+               one per card on several), each shard a map-kernel launch;
+               then python -m repro_torch.launch.serve --serve-maps (async)
+               and --no-async as subprocesses: URL from the first line,
+               /healthz, the 12 x 2^21 map batch, SIGINT, exit 0
   attention    the tri_attn kernel on both routes and in both grid modes
                against its plain versions (tests/test_kernels_tri_attn.py's
                sweep, GQA): the simt route (fp32; other bf16 shapes) mapped
@@ -276,6 +292,13 @@ IMPLIED_CLASS = {"analytical": "O(1)", "sqrt_loop": "O(1)",
 #: same amplification as RWKV_LOGIT_RTOL; measured 0.128 of max |logit| on
 #: an H100, gate about twice that
 RWKV_DECODE_RTOL = 0.3
+#: a λ offset past 2^31 (the evaluate batch's and the key queries' far query)
+FAR = (1 << 31) + 12345
+#: the serve phase: concurrent clients, sweep sizes, seconds to wait for the
+#: entry point to boot and to stop
+SERVE_CLIENTS = 4
+SERVE_SWEEP = (1 << 20, 1 << 21)
+SERVE_BOOT_S = 120
 
 
 def emit(obj: dict) -> None:
@@ -698,6 +721,23 @@ class Smoke:
                   "ms_64bit": ms64})
 
     # -- phase 5 -------------------------------------------------------------
+    def _eval_queries(self, max_points: int) -> list[dict]:
+        """The evaluate batch: every domain at ``max_points``, two tri2d
+        prefixes, tri2d past 2^31 and three membership boxes (26.2 M
+        points at 2^21)."""
+        queries = [{"domain": name, "n_points": max_points}
+                   for name in self.DOMAINS]
+        return queries + [
+            {"domain": "tri2d", "n_points": 1000},
+            {"domain": "tri2d", "n_points": 5000},
+            {"domain": "tri2d", "n_points": 1 << 20, "start": FAR},
+            {"domain": "tri2d", "tier": "membership", "extent": [1448, 1448]},
+            {"domain": "gasket2d", "tier": "membership",
+             "extent": [1448, 1448]},
+            {"domain": "menger3d", "tier": "membership",
+             "extent": [128, 128, 128]},
+        ]
+
     def evaluate(self) -> None:
         import numpy as np
 
@@ -708,19 +748,7 @@ class Smoke:
             MAX_POINTS, EvaluationService, encoded_batch_response,
         )
 
-        far = (1 << 31) + 12345
-        queries = [{"domain": name, "n_points": MAX_POINTS}
-                   for name in self.DOMAINS]
-        queries += [
-            {"domain": "tri2d", "n_points": 1000},
-            {"domain": "tri2d", "n_points": 5000},
-            {"domain": "tri2d", "n_points": 1 << 20, "start": far},
-            {"domain": "tri2d", "tier": "membership", "extent": [1448, 1448]},
-            {"domain": "gasket2d", "tier": "membership",
-             "extent": [1448, 1448]},
-            {"domain": "menger3d", "tier": "membership",
-             "extent": [128, 128, 128]},
-        ]
+        queries = self._eval_queries(MAX_POINTS)
         ev = EvaluationService(compile_cache=CompileCache(max_entries=64))
         self.reset_counts()
         t0 = time.perf_counter()
@@ -757,7 +785,7 @@ class Smoke:
             check({k: v for k, v in a.items() if k not in skip}
                   == {k: v for k, v in r.items() if k not in skip},
                   f"{q}: result metadata differ from the CPU path")
-        exact = np_map("tri2d", np.arange(far, far + (1 << 20),
+        exact = np_map("tri2d", np.arange(FAR, FAR + (1 << 20),
                                           dtype=np.int64))
         check(np.array_equal(cold[14]["coords"].astype(np.int64), exact),
               "tri2d past 2^31 differs from the exact numpy tier")
@@ -960,13 +988,12 @@ class Smoke:
             return result_from_record(rec, self.DOMAINS[rec["domain"]],
                                       key).artifact
 
-        far = (1 << 31) + 12345
         keys = sorted(arts)
         tri = next(k for k in keys if k[0] == "tri2d")
         by_key = [{"key": arts[k].cache_key, "n_points": MAX_POINTS}
                   for k in keys]
         by_key.append({"key": arts[tri].cache_key, "n_points": 1 << 20,
-                       "start": far})
+                       "start": FAR})
         domain_of = {arts[k].cache_key: k[0] for k in keys}
         by_dom = [{"domain": domain_of[q["key"]],
                    **{f: v for f, v in q.items() if f != "key"}}
@@ -1040,6 +1067,343 @@ class Smoke:
                         "record": json.loads(rec_path.read_text())},
               "menger3d": {"rc": done["menger3d"][0],
                            "stderr": done["menger3d"][2]},
+              "phase_s": time.perf_counter() - t_phase})
+
+    # -- phase: serve ---------------------------------------------------------
+    def _same_results(self, got: list, want: list, what: str,
+                      meta: bool = True) -> None:
+        """Socket answers against in-process ones: arrays bit-identical
+        with equal dtypes, metadata (``meta``) equal but for
+        ``executable``."""
+        import numpy as np
+
+        check(len(got) == len(want), f"{what}: {len(got)} results, want "
+              f"{len(want)}")
+        skip = ("coords", "mask", "executable")
+        for i, (g, w) in enumerate(zip(got, want)):
+            for field in ("coords", "mask"):
+                if field in w:
+                    check(field in g and g[field].dtype == w[field].dtype
+                          and np.array_equal(g[field], w[field]),
+                          f"{what}: result {i} {field} differs from the "
+                          f"in-process one")
+            check(not meta or {k: v for k, v in g.items() if k not in skip}
+                  == {k: v for k, v in w.items() if k not in skip},
+                  f"{what}: result {i} metadata differ from the in-process "
+                  f"one")
+
+    def _serve_frontend(self, cls, name, queries, want, sweep_want,
+                        cells, menger_cell) -> dict:
+        """One frontend in process: the evaluate batch cold, warm and off
+        the wire LRU; derives then key queries and three refusals; a binary
+        sweep; concurrent clients."""
+        import threading
+
+        from repro_torch.core import compile_cache
+        from repro_torch.core.backends import MockLLMBackend
+        from repro_torch.core.store import build_store
+        from repro_torch.serving import (
+            MappingService, RemoteMappingService, RemoteServiceError,
+            batching_factory,
+        )
+        from repro_torch.serving.evaluate import MAX_POINTS
+
+        K = self.K
+        compile_cache.configure_default(max_entries=128)   # a cold launcher
+        service = MappingService(
+            store=build_store(ROOT / "build" / "serve" / name / "store"),
+            backend_factory=batching_factory(MockLLMBackend),
+            n_validate=DERIVE_N_VALIDATE, sample_every=DERIVE_SAMPLE_EVERY)
+        out = {"frontend": name}
+        with cls(service) as server:
+            client = RemoteMappingService(server.url, timeout=300)
+            # -- the evaluate batch: cold, warm (computed), off the wire LRU
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = client.evaluate_batch(queries)
+                times.append(time.perf_counter() - t0)
+                self._same_results(got, want, f"{name} evaluate batch")
+            check([r["executable"] for r in got] == ["hit"] * len(got),
+                  f"{name}: the repeats rode launcher misses")
+            wire_stats = client.metrics()["evaluate_wire"]
+            check(wire_stats["hits"] >= 1, f"{name}: the third batch was "
+                  f"not served from the wire LRU: {wire_stats}")
+            out.update(cold_s=times[0], warm_s=times[1], wire_lru_s=times[2],
+                       evaluate_wire=wire_stats)
+
+            # -- derive the deployable cells, then evaluate them by key
+            t0 = time.perf_counter()
+            derived = {c: client.derive(*c) for c in cells}
+            menger = client.derive(*menger_cell)
+            out["derive_s"] = time.perf_counter() - t0
+            check(all(r.artifact is not None and r.artifact.deployable
+                      for r in derived.values()),
+                  f"{name}: a paper-deployable cell derived undeployable")
+            check(menger.artifact is not None
+                  and not menger.artifact.deployable,
+                  f"{name}: {menger_cell} derived deployable")
+            by_domain = {q["domain"]: w for q, w in zip(queries, want)
+                         if q.get("tier", "map") == "map"
+                         and q["n_points"] == MAX_POINTS}
+            far_want = next(w for q, w in zip(queries, want)
+                            if q.get("start") == FAR)
+            n0 = K.MAP_LAUNCHES
+            t0 = time.perf_counter()
+            key_points = 0
+            for dom in sorted({c[0] for c in cells}):
+                batch = [{"key": derived[c].cache_key, "n_points": MAX_POINTS}
+                         for c in cells if c[0] == dom]
+                if dom == "tri2d":
+                    batch.append({"key": batch[0]["key"], "n_points": 1 << 20,
+                                  "start": FAR})
+                res = client.evaluate_batch(batch)
+                for q, r in zip(batch, res):
+                    w = far_want if q.get("start") == FAR else by_domain[dom]
+                    check(r["coords"].dtype == w["coords"].dtype
+                          and r["coords"].tobytes() == w["coords"].tobytes(),
+                          f"{name}: key query {q['key'][:12]} differs from "
+                          f"the {dom} domain query")
+                    key_points += q["n_points"]
+            out.update(key_queries_s=time.perf_counter() - t0,
+                       key_queries=len(cells) + 1, key_points=key_points,
+                       key_launches=K.MAP_LAUNCHES - n0)
+            refusals = {}
+            for what, key, status in (
+                    ("not deployable", menger.cache_key, 400),
+                    ("unknown", "0" * 64, 404), ("malformed", "not-hex", 400)):
+                n0 = K.MAP_LAUNCHES, K.MEMBERSHIP_LAUNCHES
+                try:
+                    client.evaluate_batch([
+                        {"key": derived[cells[0]].cache_key, "n_points": 10},
+                        {"key": key, "n_points": 10}])
+                except RemoteServiceError as e:
+                    check(e.status == status, f"{name}: a {what} key "
+                          f"answered {e.status}, want {status}")
+                    refusals[what] = f"{e.status}: {e}"
+                else:
+                    raise AssertionError(f"{name}: a {what} key was not "
+                                         f"refused")
+                check((K.MAP_LAUNCHES, K.MEMBERSHIP_LAUNCHES) == n0,
+                      f"{name}: a {what} key launched a kernel")
+            out["refusals"] = refusals
+
+            # -- a binary sweep stream, every cell as in process
+            t0 = time.perf_counter()
+            swept = list(client.evaluate_sweep(list(self.DOMAINS),
+                                               list(SERVE_SWEEP)))
+            out["sweep_s"] = time.perf_counter() - t0
+            out["sweep_cells"] = len(swept)
+            # several cards split each cell (``executable: sharded``)
+            self._same_results(swept, sweep_want, f"{name} sweep",
+                               meta=self.torch.cuda.device_count() == 1)
+            client.close()
+
+            # -- concurrent clients, the wire LRU emptied so each computes
+            server.eval_wire.clear()
+            answers, errors = [None] * SERVE_CLIENTS, []
+            n0 = K.MAP_LAUNCHES, K.MEMBERSHIP_LAUNCHES
+
+            def one(i):
+                try:
+                    c = RemoteMappingService(server.url, timeout=300)
+                    answers[i] = c.evaluate_batch(queries)
+                    c.close()
+                except Exception as e:  # noqa: BLE001 — re-raised below
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            out["concurrent_s"] = time.perf_counter() - t0
+            check(not errors, f"{name}: concurrent clients failed: {errors}")
+            for i, a in enumerate(answers):
+                self._same_results(a, want, f"{name} concurrent client {i}")
+            out["concurrent_launches"] = {
+                "map_kernel": K.MAP_LAUNCHES - n0[0],
+                "membership_kernel": K.MEMBERSHIP_LAUNCHES - n0[1]}
+            check(out["concurrent_launches"]["map_kernel"] > 0,
+                  f"{name}: the concurrent clients launched nothing")
+            out["metrics_evaluate"] = client.metrics()["evaluate"]
+        return out
+
+    def _serve_entry_point(self, extra: list, want: list) -> dict:
+        """``python -m repro_torch.launch.serve --serve-maps --port 0`` as a
+        user runs it: its URL from the first line, /healthz, the 12 × 2^21
+        map queries as one binary batch, then SIGINT and exit 0."""
+        import os
+        import signal
+        import urllib.request
+
+        from repro_torch.serving import RemoteMappingService
+
+        work = ROOT / "build" / "serve" / (
+            "entry_threaded" if "--no-async" in extra else "entry_async")
+        work.mkdir(parents=True, exist_ok=True)
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "REPRO_ARTIFACT_CACHE": str(work / "store")}
+        argv = [sys.executable, "-m", "repro_torch.launch.serve",
+                "--serve-maps", "--port", "0", *extra]
+        with open(work / "stderr.txt", "w") as err:
+            proc = subprocess.Popen(argv, env=env, cwd=ROOT,
+                                    stdout=subprocess.PIPE, stderr=err,
+                                    text=True)
+        try:
+            t0 = time.perf_counter()
+            first = proc.stdout.readline()
+            boot_s = time.perf_counter() - t0
+            check(first.startswith("mapping service on http://"),
+                  f"{' '.join(argv[1:])} printed {first!r} (stderr in "
+                  f"{work / 'stderr.txt'})")
+            url = first.split()[3]
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            check(health.get("status") == "ok", f"/healthz said {health}")
+            client = RemoteMappingService(url, timeout=300)
+            queries = [{"domain": name, "n_points": q["n_points"]}
+                       for name, q in zip(self.DOMAINS, want)]
+            t0 = time.perf_counter()
+            got = client.evaluate_batch(queries)
+            eval_s = time.perf_counter() - t0
+            self._same_results(got, want, " ".join(argv[3:]))
+            client.close()
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=SERVE_BOOT_S)
+            check(proc.returncode == 0, f"{' '.join(argv[3:])} exited "
+                  f"{proc.returncode} on SIGINT")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        return {"command": "python -m repro_torch.launch.serve "
+                + " ".join(argv[3:]), "first_line": first.strip(),
+                "boot_s": boot_s, "mode": health.get("mode"),
+                "evaluate_s": eval_s, "rc": proc.returncode}
+
+    def sharded_sweep(self) -> dict:
+        """The sweep's λ-range split over every card (two shards on the one
+        card where there is one): each shard one map-kernel launch at its
+        λ offset, every cell held against one unsplit launch."""
+        import numpy as np
+
+        from repro_torch.core.compile_cache import CompileCache
+        from repro_torch.serving.evaluate import MAX_POINTS, EvaluationService
+
+        torch, K = self.torch, self.K
+        n = torch.cuda.device_count()
+        devices = [f"cuda:{i}" for i in range(n)] if n > 1 \
+            else ["cuda:0", "cuda:0"]
+        sizes = (MAX_POINTS, MAX_POINTS // 2 + 3)   # even and uneven splits
+        ev = EvaluationService(compile_cache=CompileCache(max_entries=64))
+        whole, _ = ev.evaluate_batch([{"domain": name, "n_points": MAX_POINTS}
+                                      for name in self.DOMAINS])
+        self.sync()
+        n0 = K.MAP_LAUNCHES
+        t0 = time.perf_counter()
+        cells = list(ev.sweep(list(self.DOMAINS), sizes, devices=devices))
+        sweep_s = time.perf_counter() - t0
+        launches = K.MAP_LAUNCHES - n0
+        check(launches == len(cells) * len(devices),
+              f"{launches} map launches for {len(cells)} cells over "
+              f"{len(devices)} shards")
+        check(ev.stats.sharded_dispatches == len(cells),
+              f"sharded_dispatches {ev.stats.sharded_dispatches}")
+        want = {r["domain"]: r["coords"] for r in whole}
+        for c in cells:
+            n_points = c["n_points"]
+            check(c["executable"] == "sharded"
+                  and c["devices"] == len(devices)
+                  and c["padded"] == -(-n_points // len(devices))
+                  * len(devices),
+                  f"{c['domain']} at {n_points}: not a sharded cell")
+            check(c["coords"].dtype == want[c["domain"]].dtype
+                  and np.array_equal(c["coords"],
+                                     want[c["domain"]][:n_points]),
+                  f"{c['domain']} at {n_points}: the split differs from one "
+                  f"launch")
+        return {"devices": devices, "cells": len(cells), "sizes": sizes,
+                "launches": launches, "sweep_s": sweep_s,
+                "sharded_dispatches": ev.stats.sharded_dispatches}
+
+    def serve(self) -> None:
+        """Evaluation serving: both frontends in process over a fresh
+        store each, then the ``--serve-maps`` entry point in both modes."""
+        import shutil
+
+        from repro_torch.core import paper_tables as pt
+        from repro_torch.core.compile_cache import CompileCache
+        from repro_torch.serving import (
+            AsyncMappingHTTPServer, MappingHTTPServer, wire,
+        )
+        from repro_torch.serving.evaluate import MAX_POINTS, EvaluationService
+
+        t_phase = time.perf_counter()
+        shutil.rmtree(ROOT / "build" / "serve", ignore_errors=True)
+        queries = self._eval_queries(MAX_POINTS)
+        cells = [(d, m, s) for d in sorted(pt.ACCURACY) for m in pt.MODELS
+                 for s, (ordered, _, compiled)
+                 in zip(pt.STAGES, pt.ACCURACY[d][m])
+                 if compiled and ordered >= 100.0]
+        check(len(cells) == 34, f"{len(cells)} deployable paper cells")
+        menger_cell = ("menger3d", pt.MODELS[0], pt.STAGES[-1])
+
+        # the in-process yardstick (its launches are not the socket path's)
+        ev = EvaluationService(compile_cache=CompileCache(max_entries=64))
+        t0 = time.perf_counter()
+        want, _ = ev.evaluate_batch(queries)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm, meta = ev.evaluate_batch(queries)
+        warm_s = time.perf_counter() - t0
+        self._same_results(warm, want, "in-process warm batch")
+        # the server's share of a socket answer past the evaluation: the
+        # frame's encoding; and the client's decoding (zero-copy views)
+        t0 = time.perf_counter()
+        frame = wire.encode_frame({"results": warm, "batch": meta})
+        encode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = wire.decode_frame(frame)["results"]
+        decode_s = time.perf_counter() - t0
+        self._same_results(decoded, want, "in-process frame")
+        frame_bytes = len(frame)
+        del frame, decoded
+        sweep_want = list(ev.sweep(list(self.DOMAINS), list(SERVE_SWEEP)))
+        maps_want, _ = ev.evaluate_batch(queries[:len(self.DOMAINS)])
+        self.sync()
+
+        self.reset_counts()
+        frontends = [self._serve_frontend(cls, name, queries, want,
+                                          sweep_want, cells, menger_cell)
+                     for cls, name in ((AsyncMappingHTTPServer, "async"),
+                                       (MappingHTTPServer, "threaded"))]
+        sharded = self.sharded_sweep()
+        self.sync()
+        counts = self.counts()
+        for k in ("map_kernel", "membership_kernel"):
+            check(counts[k] > 0, f"the serve phase never launched {k}")
+            self.launches[k] += counts[k]
+        check(all(n == 0 for k, n in counts.items()
+                  if k not in ("map_kernel", "membership_kernel")),
+              f"other kernels launched in the serve phase: {counts}")
+        entry = [self._serve_entry_point(extra, maps_want)
+                 for extra in ([], ["--no-async"])]
+        check([e["mode"] for e in entry] == ["async", "threaded"],
+              f"the entry point booted {[e['mode'] for e in entry]}")
+        emit({"phase": "serve", "card": self.card,
+              "queries": len(queries),
+              "points": sum(q.get("n_points", 0) for q in queries),
+              "in_process": {"cold_s": cold_s, "warm_s": warm_s,
+                             "encode_frame_s": encode_s,
+                             "decode_frame_s": decode_s,
+                             "frame_bytes": frame_bytes},
+              "frontends": frontends, "sharded_sweep": sharded,
+              "entry_point": entry,
+              "main_path_launches": counts,
               "phase_s": time.perf_counter() - t_phase})
 
     # -- phase 6 -------------------------------------------------------------
@@ -2273,8 +2637,9 @@ class Smoke:
     def kernels_line(self) -> None:
         """One row per kernel.  Map rows: launches are paper_scale's main
         path (one mapped launch per domain at N = 5e8, one membership launch
-        per BB box) and ms, plain_ms and bound_ms are per launch over those
-        same calls.  tri_attn has a row per route: sm90 (the LM path, timed
+        per BB box) and the serve phase's (every launch its frontends and
+        its split sweep made); ms, plain_ms and bound_ms are per launch over
+        paper_scale's calls.  tri_attn has a row per route: sm90 (the LM path, timed
         at the LM shape) and simt (the block-64 forward, timed there)."""
         src = "src/repro_torch/kernels/domain_map/csrc/"
         replaces = {"map_kernel": "src/repro/kernels/domain_map/kernel.py:53",
@@ -2328,10 +2693,15 @@ def main() -> int:
     if "--index-widths" in sys.argv[1:]:
         smoke.index_widths()
         return 0
+    if "--sharded-sweep" in sys.argv[1:]:
+        emit({"phase": "sharded_sweep", "card": smoke.card,
+              **smoke.sharded_sweep()})
+        return 0
     smoke.kernels()
     smoke.paper_scale()
     smoke.evaluate()
     smoke.derive()
+    smoke.serve()
     smoke.attention()
     smoke.lm_forward()
     smoke.lm_generate()

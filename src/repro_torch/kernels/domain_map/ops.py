@@ -24,6 +24,7 @@ import numpy as np
 from repro_torch.core import compile_cache as cc
 from repro_torch.core.artifact import resolve_domain
 from repro_torch.core.domains import get_domain
+from repro_torch.kernels.domain_map import kernel
 from repro_torch.kernels.domain_map.kernel import (
     build_map_call, build_membership_call,
 )
@@ -91,6 +92,62 @@ def membership_executable(spec, extent: tuple[int, ...], padded: int,
                      tuple(extent) + (padded,), block_n, ndigits,
                      interpret=interpret)
     return cache.get(key, build)
+
+
+def sharded_map_executable(spec, n_points: int, devices, interpret: bool,
+                           compile_cache=cc.USE_DEFAULT):
+    """``(launcher, padded, ndigits)`` for one map-tier λ-range split evenly
+    over ``devices``: padded = ceil(n/len(devices))·len(devices), and device
+    i computes λ in ``[i·padded/len, (i+1)·padded/len)``.  The launcher
+    issues every shard before it copies any back, then gathers them once to
+    the host: a (dim, padded) int32 numpy array.
+
+    Each shard is one map-kernel launch with its λ offset, on its own card
+    (``torch.cuda.device(i)``); with ``interpret=True`` it is the kernel's
+    plain version on ``devices[i]`` (a CPU test shards over
+    ``["cpu", "cpu"]``)."""
+    import torch
+
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("a sharded launch needs at least one device")
+    if not interpret:
+        if any(d.type != "cuda" for d in devices):
+            raise ValueError(f"the map kernel runs on cuda devices, not "
+                             f"{[str(d) for d in devices]}")
+        if not torch.cuda.is_available():
+            raise RuntimeError(kernel.NO_CARD)
+    domain_name = resolve_domain(spec)
+    n_dev = len(devices)
+    padded = _pad_to(n_points, n_dev)
+    per = padded // n_dev
+    _, _, ndigits = map_plan(spec, padded, 1)
+
+    def build():
+        if interpret:
+            def run():
+                return torch.cat([
+                    kernel.map_plain(spec, per, ndigits, i * per, device=d)
+                    .cpu() for i, d in enumerate(devices)], dim=1).numpy()
+            return run
+        kernel._library("map_kernel")
+
+        def run():
+            outs = []
+            for i, d in enumerate(devices):
+                with torch.cuda.device(d):
+                    outs.append(kernel.launch_map(domain_name, per, ndigits,
+                                                  i * per))
+            return torch.cat([o.cpu() for o in outs], dim=1).numpy()
+        return run
+
+    cache = cc.resolve(compile_cache)
+    if cache is None:
+        return build(), padded, ndigits
+    key = cc.ExecKey(cc.spec_fingerprint(spec),
+                     "map_sharded:" + ",".join(str(d) for d in devices),
+                     (padded, n_dev), 0, ndigits, interpret=interpret)
+    return cache.get(key, build), padded, ndigits
 
 
 def map_coordinates(spec, n_points: int, block_n: int = 1024,

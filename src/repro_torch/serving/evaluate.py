@@ -16,9 +16,10 @@ kernels want to be executed:
   * **launcher cache** — resolution goes through
     :mod:`repro_torch.core.compile_cache`, so a warm query pays a dict hit
     + a launch (see ``kernels/domain_map/ops.py``).
-  * **sweeps** — ``sweep`` streams one result per (domain × n_points) cell.
-    Every cell runs on one card; the JAX package's multi-device split of a
-    cell's λ-range is not ported yet.
+  * **multi-device sweeps** — ``sweep`` streams one result per (domain ×
+    n_points) cell.  With more than one card, each map-tier cell's λ-range
+    is split over every card: each runs the map kernel on its shard at its
+    λ offset, and the shards are gathered once to the host.
 
 Query schema (one dict per query; the wire form of ``POST /v1/evaluate``):
 
@@ -73,7 +74,7 @@ class EvalStats:
     points: int = 0           # points asked for (pre-padding)
     padded_points: int = 0    # points computed (post-padding/merging)
     sweep_cells: int = 0      # cells streamed by sweep()
-    sharded_dispatches: int = 0  # multi-device dispatches (not ported: 0)
+    sharded_dispatches: int = 0  # sweep cells split over several devices
     errors: int = 0
 
     def as_dict(self) -> dict:
@@ -353,14 +354,21 @@ class EvaluationService:
     # -- sweeps ------------------------------------------------------------
     def sweep(self, domains: Iterable[str], sizes: Iterable[int],
               tier: str = "map", block_n: int | None = None,
-              interpret: bool | None = None) -> Iterator[dict]:
+              interpret: bool | None = None,
+              devices: Sequence | None = None) -> Iterator[dict]:
         """Grid sweep over (domain × n_points), streaming one result per
-        cell — the NDJSON surface of ``POST /v1/evaluate``.  Every cell
-        runs on one card."""
+        cell — the NDJSON surface of ``POST /v1/evaluate``.  Each map-tier
+        cell's λ-range is split over ``devices`` when it names more than
+        one (default: every card, when there are several and the sweep
+        runs the kernel); otherwise a cell is one :meth:`evaluate`."""
         domains = list(domains)
         sizes = [int(s) for s in sizes]
         if not domains or not sizes:
             raise ValueError("sweep needs non-empty 'domains' and sizes")
+        if devices is None and not interpret \
+                and torch.cuda.device_count() > 1:
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        shard = tier == "map" and devices is not None and len(devices) > 1
         for name in domains:
             for n in sizes:
                 q = {"domain": name, "n_points": n, "tier": tier}
@@ -368,10 +376,51 @@ class EvaluationService:
                     q["block_n"] = block_n
                 if interpret is not None:
                     q["interpret"] = interpret
-                res = self.evaluate(q)
+                if shard:
+                    res = self._sharded_cell(name, n, devices,
+                                             bool(interpret))
+                else:
+                    res = self.evaluate(q)
                 with self._mu:
                     self.stats.sweep_cells += 1
                 yield res
+
+    def _sharded_cell(self, name: str, n_points: int, devices: Sequence,
+                      interpret: bool = False) -> dict:
+        """One sweep cell split over ``devices``: each runs the map kernel
+        (``interpret=True``: its plain version) on its share of the
+        λ-range, and the shards are gathered once to the host.  The
+        launcher is cached like any other (tier ``map_sharded``)."""
+        try:
+            if name not in DOMAINS:
+                raise KeyError(name)
+            if not isinstance(n_points, int) or n_points <= 0:
+                raise ValueError("map queries need 'n_points': a positive "
+                                 "integer")
+            if n_points > self.max_points:
+                raise ValueError(
+                    f"n_points {n_points} > max {self.max_points}")
+            call, padded, ndigits = ops.sharded_map_executable(
+                name, n_points, devices, interpret,
+                compile_cache=self.cache)
+        except Exception:
+            with self._mu:
+                self.stats.errors += 1
+            raise
+        coords = call()[:DOMAINS[name].dim, :n_points].T
+        with self._mu:
+            self.stats.queries += 1
+            self.stats.sharded_dispatches += 1
+            self.stats.points += n_points
+            self.stats.padded_points += padded
+        return {
+            "index": 0, "domain": name, "tier": "map",
+            "n_points": n_points, "start": 0, "extent": None,
+            "block_n": 0, "ndigits": ndigits, "padded": padded,
+            "interpret": interpret, "group": 0, "group_size": 1,
+            "executable": "sharded", "devices": len(devices),
+            "coords": coords,
+        }
 
     # -- introspection -----------------------------------------------------
     def stats_dict(self) -> dict:

@@ -135,5 +135,8 @@ def test_lm_demo_runs_rwkv_on_the_cpu(capsys):
 
 
 def test_lm_demo_serve_maps_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        serve.main(["--serve-maps"])
+    """``--serve-maps`` itself is ported (held in
+    ``tests/test_torch_serving_launch.py``); its engine backend is not, and
+    it raises before any server starts, naming the ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        serve.main(["--serve-maps", "--backend", "engine", "--port", "0"])

@@ -66,3 +66,12 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.obs.metrics", "repro_torch.obs.trace",
                  "repro_torch.launch.analytic", "repro_torch.launch.dryrun"):
         assert name in seen["modules"]
+    # evaluation serving
+    for name in ("repro_torch.serving.batching",
+                 "repro_torch.serving.map_service",
+                 "repro_torch.serving.router", "repro_torch.serving.cluster",
+                 "repro_torch.serving.http", "repro_torch.serving.aio",
+                 "repro_torch.serving.client", "repro_torch.serving.wire"):
+        assert name in seen["modules"]
+    # the reference's continuous batching waits for EngineBackend
+    assert "repro_torch.serving.async_engine" not in seen["modules"]

@@ -2,9 +2,9 @@
 against the JAX package's: the lifecycle cases of ``tests/test_store.py``
 (memory-LRU eviction order, disk TTL + max-bytes eviction over the
 access-time index, schema-version migration, checksum-mismatch quarantine,
-read-through promotion, the env/CLI construction surface) run against the
-port — all but the two served-lifecycle cases, which need the mapping
-service — and the record format is shared: a record either package's
+read-through promotion, the env/CLI construction surface, and the two
+served-lifecycle cases on the port's ``MappingService``) run against the
+port, and the record format is shared: a record either package's
 ``DiskStore`` writes loads in the other's, envelope and checksum equal."""
 import json
 import os
@@ -406,6 +406,42 @@ def test_finalize_record_is_idempotent():
     rekeyed = finalize_record("k2", rec)
     assert rekeyed["key"] == "k2"
     assert rekeyed["checksum"] == rec["checksum"]  # payload unchanged
+
+
+# ---------------------------------------------------------------------------
+# Served lifecycle: the service on a tiered store
+# ---------------------------------------------------------------------------
+
+
+def test_service_hot_path_skips_disk_and_rehydration(tmp_path):
+    from repro_torch.serving import MappingService
+
+    svc = MappingService(store=build_store(root=tmp_path),
+                         n_validate=2000, sample_every=1)
+    first = svc.derive("tri2d", "OSS:120b", 20)
+    warm = svc.derive("tri2d", "OSS:120b", 20)     # memory record + rehydrate
+    reads = svc.store.disk.reads
+    hot = svc.derive("tri2d", "OSS:120b", 20)      # remembered result
+    assert svc.store.disk.reads == reads           # no disk read
+    assert hot is warm                             # no reconstruction either
+    assert not first.cache_hit and warm.cache_hit and hot.cache_hit
+    stats = svc.store_stats()
+    assert stats["memory"]["result_hits"] == 1
+    assert svc.stats.cache_hits == 2
+
+
+def test_service_survives_memory_eviction_via_disk(tmp_path):
+    from repro_torch.serving import MappingService
+
+    svc = MappingService(store=build_store(root=tmp_path, memory_entries=1),
+                         n_validate=2000, sample_every=1)
+    svc.derive("tri2d", "OSS:120b", 20)
+    svc.derive("gasket2d", "OSS:120b", 20)   # evicts tri2d from memory
+    res = svc.derive("tri2d", "OSS:120b", 20)
+    assert res.cache_hit                     # disk tier caught it
+    assert svc.stats.derivations == 2
+    assert svc.store.memory.evictions >= 1
+    assert svc.store.disk.hits >= 1
 
 
 @pytest.mark.skipif(os.name != "posix", reason="posix path semantics")
