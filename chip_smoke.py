@@ -84,6 +84,36 @@ Phases, each printing one JSON line:
   lm_generate  engine.generate at full width, batch 4, prompt 512, 32 greedy
                tokens; prefill and decode_step held against forward; then
                the LM demo entry point (repro_torch.launch.serve --arch yi-6b)
+  vlm_forward  llama-3.2-vision-11b at full width (bf16, random weights
+               from a seeded torch.Generator, every xattn_gate set to 0.5),
+               tokens (1, 4096), stub vision states (1, 4100, 4096): forward
+               and lm_loss under pallas_mapped, pallas_bb and xla, 32 sm90
+               launches per kernel forward (none from the 8 cross layers),
+               kernel logits held against xla and mapped against BB; one
+               cross layer on its own inputs against the same layer in fp32
+  vlm_generate engine.generate at batch 4, prompt 512, 32 greedy tokens,
+               vision states (4, 4100, 4096); prefill and the first decode
+               step held against forward; then the LM demo (--arch
+               llama-3.2-vision-11b)
+  whisper_forward whisper-medium at full width (bf16), stub frames
+               (8, 1500, 1024), decoder tokens (8, 384): forward and lm_loss
+               in the three modes, 24 sm90 launches per kernel forward,
+               gates as vlm's; at 448 tokens no launch and the xla path;
+               tri_attn at the decoder's shape (B·H 128, S 384, D 64)
+               timed beside its bound and SDPA's time
+  whisper_generate batch 4, prompt 64, 32 greedy tokens: the cross k/v that
+               prefill caches equal a fresh projection of the encoder
+               states; prefill and the first decode step against forward;
+               then the LM demo (--arch whisper-medium)
+  engine_serve EngineBackend on the card (the yi-6b smoke config, as the
+               reference's): generate_batch against singles, decode steps
+               and measured seconds; then python -m repro_torch.launch.serve
+               --serve-maps --backend engine (asyncio: continuous batching)
+               and --no-async as subprocesses: the paper's 6 domains
+               derived by 4 concurrent clients, every record deployable,
+               key queries at 2^21 points bit-identical to the domain
+               queries, continuous-batching occupancy above 1 under asyncio,
+               SIGINT, exit 0
   wkv          the wkv kernels (three a call: chunk states, state scan,
                chunk outputs) against their plain composition and the
                recurrence oracle (tests/test_kernels_wkv.py's cases in
@@ -299,6 +329,35 @@ FAR = (1 << 31) + 12345
 SERVE_CLIENTS = 4
 SERVE_SWEEP = (1 << 20, 1 << 21)
 SERVE_BOOT_S = 120
+#: the vlm path: llama-3.2-vision-11b at full width (8 groups of 4 self
+#: layers and one gated cross layer), tokens (1, 4096), stub vision states
+#: (1, 4100, 4096) × 0.1
+VLM_ARCH = "llama-3.2-vision-11b"
+VLM_PARAMS = 9_775_157_256
+VLM_SEQ = 4096
+VLM_LAUNCHES = 32              # one per self layer; none from a cross layer
+#: every xattn_gate after init: the reference initialises them to 0, which
+#: would leave the cross layers adding nothing any check could see
+VLM_GATE = 0.5
+#: one cross layer, bf16 on the card, against the same layer in fp32 on
+#: the same inputs: its attention branch (tanh(gate) · attention) and its
+#: output, max |Δ| over the max |fp32 value|.  The bf16 path rounds the
+#: normed input, q, k, v, the attention output and each product's output
+#: to bf16 (2^-9 of an element each), which sums to well under 1e-2 of the
+#: max; the gate is 3e-2.  A control proves it can fail: the fp32 branch
+#: over half the vision states.
+CROSS_RTOL = 3e-2
+#: the audio path: whisper-medium at full width (24 encoder + 24 decoder
+#: layers, 16 heads of 64), stub frames (8, 1500, 1024) × 0.1, decoder
+#: tokens (8, 384): 384 is a multiple of the 128 block inside whisper's
+#: 448-token text context; at 448 the decoder takes the plain SDPA
+WHISPER_ARCH = "whisper-medium"
+WHISPER_PARAMS = 817_053_696
+WHISPER_BATCH, WHISPER_SEQ, WHISPER_SEQ_PLAIN = 8, 384, 448
+WHISPER_LAUNCHES = 24          # one per decoder self layer
+WHISPER_GEN_PROMPT = 64
+#: engine_serve: the paper's 6 domains derived at one model and stage
+ENGINE_MODEL, ENGINE_STAGE = "OSS:120b", 20
 
 
 def emit(obj: dict) -> None:
@@ -1954,80 +2013,24 @@ class Smoke:
     def lm_generate(self) -> None:
         import numpy as np
 
-        torch, AK = self.torch, self.AK
+        torch = self.torch
         from repro_torch.configs import get_config
-        from repro_torch.models import transformer as T
-        from repro_torch.serving.engine import generate
 
         params = self.lm_params
         cfg = get_config(LM_ARCH).replace(max_seq=GEN_PROMPT + GEN_NEW)
         prompts = torch.from_numpy(np.random.default_rng(2).integers(
             0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int64)).cuda()
-        self.reset_counts()
-        t0 = time.perf_counter()
-        res = generate(params, cfg, prompts, GEN_NEW)
-        self.sync()
-        gen_s = time.perf_counter() - t0
-        check(res.steps == GEN_NEW and res.tokens.shape
-              == (GEN_BATCH, GEN_PROMPT + GEN_NEW), "generate's shape")
-        check(bool((res.tokens[:, :GEN_PROMPT] == prompts).all()),
-              "generate changed the prompt")
-        t0 = time.perf_counter()
-        pre, cache = T.prefill(params, cfg, prompts)
-        self.sync()
-        prefill_s = time.perf_counter() - t0
-        decode_ms = (gen_s - prefill_s) / GEN_NEW * 1e3
-        # prefill against forward at the prompt positions
-        fwd = T.forward(params, cfg, prompts)
-        pre_rel = float((pre - fwd).abs().max()) / float(fwd.abs().max())
-        pre_top1 = float((pre.argmax(-1) == fwd.argmax(-1)).float().mean())
-        check(pre_rel <= LOGIT_RTOL, f"prefill vs forward: {pre_rel}")
-        check(pre_top1 >= TOP1_MIN, f"prefill vs forward top-1 {pre_top1}")
-        check(torch.equal(pre[:, -1:, :cfg.vocab_size].argmax(-1),
-                          res.tokens[:, GEN_PROMPT:GEN_PROMPT + 1]),
-              "a second prefill's first token is not generate's")
-        # the first decode_step against forward over prompt + token
-        nt = pre[:, -1:, :cfg.vocab_size].argmax(-1)
-        del fwd, pre
-        dec, _ = T.decode_step(params, cfg, nt, cache)
-        full = T.forward(params, cfg, torch.cat([prompts, nt], dim=1))[:, -1]
-        dec_rel = float((dec[:, 0] - full).abs().max()) \
-            / float(full.abs().max())
-        profiles = {"decode_vs_forward": self._profile(dec[:, 0], full)}
-        check(dec_rel <= LOGIT_RTOL, f"decode_step vs forward: {dec_rel}")
-        launches = AK.ATTN_LAUNCHES
-        check(launches == 0, f"{launches} tri_attn launches in generate")
+        got = self._generate_held(params, cfg, prompts, None, LM_ARCH)
+        got.pop("cache")
         emit({"phase": "lm_generate", "card": self.card, "arch": LM_ARCH,
-              "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
-              "max_seq": cfg.max_seq, "generate_s": gen_s,
-              "prefill_s": prefill_s, "decode_ms_per_step": decode_ms,
-              "tokens_per_s": GEN_BATCH * GEN_NEW / gen_s,
-              "prefill_vs_forward_rel": pre_rel,
-              "prefill_vs_forward_top1": pre_top1,
-              "decode_vs_forward_rel": dec_rel, "logit_rtol": LOGIT_RTOL,
-              "tri_attn_launches": launches,
+              **got,
               "note": "prefill and decode run the plain SDPA, as in the "
-                      "reference: no tri_attn launch is expected",
-              "sample": res.tokens[0, GEN_PROMPT:GEN_PROMPT + 8].tolist()})
-        del self.lm_params, params, cache, res, dec, full
-        torch.cuda.empty_cache()
-
-        # the LM demo entry point, as a user runs it
-        from repro_torch.launch import serve
-
-        argv = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "32",
-                "--max-new", "32"]
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            serve.main(argv)
-        demo_s = time.perf_counter() - t0
-        lines = out.getvalue().splitlines()
-        check(any("generated 32 steps x 4 seqs" in ln for ln in lines),
-              f"LM demo printed {lines}")
-        emit({"phase": "lm_demo", "card": self.card,
-              "command": "python -m repro_torch.launch.serve " + " ".join(argv),
-              "seconds": demo_s, "stdout": lines})
+                      "reference: no tri_attn launch is expected"})
+        del self.lm_params, params
+        self._free()
+        emit({"phase": "lm_demo", **self._demo(
+            ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "32",
+             "--max-new", "32"])})
 
     # -- phase 9 -------------------------------------------------------------
     def _wkv_inputs(self, bh, s, d, dtype, gen, dec=None):
@@ -2177,14 +2180,11 @@ class Smoke:
         return out
 
     def wkv(self) -> None:
-        import gc
-
         torch, WK = self.torch, self.WK
         from repro_torch.kernels.wkv.ops import wkv_chunked
         from repro_torch.kernels.wkv.ref import wkv_ref
 
-        gc.collect()
-        torch.cuda.empty_cache()
+        self._free()
         gen = torch.Generator(device="cuda").manual_seed(3)
         worst = {"vs_plain": 0.0, "o_fp32": 0.0, "state": 0.0,
                  "bf16_row_excess": -1.0}
@@ -2378,8 +2378,6 @@ class Smoke:
                 "p90": float(q[1]), "p99": float(q[2])}
 
     def rwkv_forward(self) -> None:
-        import gc
-
         import numpy as np
 
         torch, WK = self.torch, self.WK
@@ -2389,8 +2387,7 @@ class Smoke:
         from repro_torch.models.common import count_params
         from repro_torch.train.train_step import lm_loss
 
-        gc.collect()
-        torch.cuda.empty_cache()
+        self._free()
         torch.cuda.reset_peak_memory_stats()
         cfg = get_config(RWKV_ARCH)
         t0 = time.perf_counter()
@@ -2497,8 +2494,6 @@ class Smoke:
 
     # -- phase 11 ------------------------------------------------------------
     def rwkv_generate(self) -> None:
-        import gc
-
         import numpy as np
 
         torch, WK = self.torch, self.WK
@@ -2609,30 +2604,617 @@ class Smoke:
               f"prefill vs the scan oracle per layer: state {state_rel}, "
               f"out {mix_rel}")
         del self.rwkv_params, params, cache, pre, res
-        gc.collect()
-        torch.cuda.empty_cache()
+        self._free()
 
-        # the LM demo entry point, as a user runs it (a 64-aligned prompt,
-        # so its prefill runs the kernel)
+        # the LM demo (a 64-aligned prompt, so its prefill runs the kernel)
+        n0 = WK.WKV_LAUNCHES
+        demo = self._demo(["--arch", RWKV_ARCH, "--batch", "4",
+                           "--prompt-len", "64", "--max-new", "32"])
+        check(WK.WKV_LAUNCHES - n0 == RWKV_LAUNCHES,
+              f"{WK.WKV_LAUNCHES - n0} wkv launches in the LM demo")
+        emit({"phase": "rwkv_demo", **demo,
+              "wkv_launches": WK.WKV_LAUNCHES - n0})
+
+    # -- the cross-attention LMs (vlm, audio) --------------------------------
+    def _scoring(self, params, cfg, tokens, extra, want_launches: int,
+                 what: str) -> dict:
+        """forward and lm_loss with ``extra`` under pallas_mapped, pallas_bb
+        and xla: ``want_launches`` sm90 tri_attn launches per kernel forward
+        (none under xla), finite logits, kernel logits within FWD_LOGIT_RTOL
+        of xla's max |logit| and mapped within it of BB, top-1 and CE against
+        xla (TOP1_MIN, CE_RTOL).  Returns the phase's fields."""
+        torch, AK = self.torch, self.AK
+        from repro_torch.models import transformer as T
+        from repro_torch.train.train_step import lm_loss
+
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, 1),
+                 "extra": extra}
+        rows, logits = {}, {}
+        for impl in ("pallas_mapped", "pallas_bb", "xla"):
+            c = cfg.replace(attn_impl=impl)
+            n0 = AK.ATTN_LAUNCHES, AK.ATTN_SM90_LAUNCHES
+            t0 = time.perf_counter()
+            out = T.forward(params, c, tokens, extra)
+            self.sync()
+            fwd_s = time.perf_counter() - t0
+            n1 = AK.ATTN_LAUNCHES, AK.ATTN_SM90_LAUNCHES
+            t0 = time.perf_counter()
+            loss, metrics = lm_loss(params, c, batch)
+            ce = float(metrics["ce"])
+            loss_s = time.perf_counter() - t0
+            n2 = AK.ATTN_LAUNCHES, AK.ATTN_SM90_LAUNCHES
+            want = 0 if impl == "xla" else want_launches
+            for kind, x in (("tri_attn", 0), ("sm90", 1)):
+                check(n1[x] - n0[x] == want and n2[x] - n1[x] == want,
+                      f"{what} {impl}: {n1[x] - n0[x]} and {n2[x] - n1[x]} "
+                      f"{kind} launches per forward, want {want}")
+            check(out.shape == (*tokens.shape, cfg.padded_vocab)
+                  and out.dtype == torch.float32, f"{what} {impl}: shape")
+            check(bool(torch.isfinite(out).all()) and math.isfinite(ce),
+                  f"{what} {impl}: logits or loss not finite")
+            logits[impl] = out
+            rows[impl] = {"forward_s": fwd_s, "lm_loss_s": loss_s,
+                          "loss": float(loss), "ce": ce,
+                          "sm90_launches_forward": n1[1] - n0[1],
+                          "launches_lm_loss": n2[0] - n1[0]}
+        x = logits["xla"]
+        scale = float(x.abs().max())
+        rel = {name: float((logits[name] - x).abs().max()) / scale
+               for name in ("pallas_mapped", "pallas_bb")}
+        mapped_vs_bb = float((logits["pallas_mapped"] - logits["pallas_bb"])
+                             .abs().max()) / scale
+        top1 = float((logits["pallas_mapped"].argmax(-1) == x.argmax(-1))
+                     .float().mean())
+        ce_rel = abs(rows["pallas_mapped"]["ce"] - rows["xla"]["ce"]) \
+            / abs(rows["xla"]["ce"])
+        del logits, x
+        for name, r in rel.items():
+            check(r <= FWD_LOGIT_RTOL,
+                  f"{what}: logits {name} vs xla {r} of max |logit|")
+        check(mapped_vs_bb <= FWD_LOGIT_RTOL,
+              f"{what}: logits mapped vs BB {mapped_vs_bb} of max |logit|")
+        check(top1 >= TOP1_MIN, f"{what}: top-1 kernel vs xla {top1}")
+        check(ce_rel <= CE_RTOL, f"{what}: CE kernel vs xla relative "
+              f"{ce_rel}")
+        return {"impls": rows, "logit_rel_vs_xla_by_impl": rel,
+                "logit_rel_mapped_vs_bb": mapped_vs_bb,
+                "logit_rtol": FWD_LOGIT_RTOL, "top1_vs_xla": top1,
+                "top1_min": TOP1_MIN, "ce_rel_vs_xla": ce_rel,
+                "ce_rtol": CE_RTOL, "max_abs_logit_xla": scale}
+
+    def _generate_held(self, params, cfg, prompts, extra, what: str) -> dict:
+        """engine.generate with ``extra``, then a second prefill against a
+        cache-less forward (xla) at the prompt positions, and the first
+        decode step against a forward over prompt + token: LOGIT_RTOL,
+        TOP1_MIN; no tri_attn launch (prefill and decode take the SDPA)."""
+        torch, AK = self.torch, self.AK
+        from repro_torch.models import transformer as T
+        from repro_torch.serving.engine import generate
+
+        b, s = prompts.shape
+        self.reset_counts()
+        t0 = time.perf_counter()
+        res = generate(params, cfg, prompts, GEN_NEW, extra=extra)
+        self.sync()
+        gen_s = time.perf_counter() - t0
+        check(res.steps == GEN_NEW and res.tokens.shape == (b, s + GEN_NEW),
+              f"{what}: generate's shape")
+        check(bool((res.tokens[:, :s] == prompts).all()),
+              f"{what}: generate changed the prompt")
+        t0 = time.perf_counter()
+        pre, cache = T.prefill(params, cfg, prompts, extra)
+        self.sync()
+        prefill_s = time.perf_counter() - t0
+        fwd = T.forward(params, cfg, prompts, extra)
+        pre_rel = float((pre - fwd).abs().max()) / float(fwd.abs().max())
+        pre_top1 = float((pre.argmax(-1) == fwd.argmax(-1)).float().mean())
+        check(pre_rel <= LOGIT_RTOL, f"{what}: prefill vs forward {pre_rel}")
+        check(pre_top1 >= TOP1_MIN,
+              f"{what}: prefill vs forward top-1 {pre_top1}")
+        nt = pre[:, -1:, :cfg.vocab_size].argmax(-1)
+        check(torch.equal(nt, res.tokens[:, s:s + 1]),
+              f"{what}: a second prefill's first token is not generate's")
+        del fwd, pre
+        dec, _ = T.decode_step(params, cfg, nt, cache, extra)
+        full = T.forward(params, cfg, torch.cat([prompts, nt], dim=1),
+                         extra)[:, -1]
+        dec_rel = float((dec[:, 0] - full).abs().max()) \
+            / float(full.abs().max())
+        check(dec_rel <= LOGIT_RTOL, f"{what}: decode_step vs forward "
+              f"{dec_rel}")
+        launches = AK.ATTN_LAUNCHES
+        check(launches == 0, f"{what}: {launches} tri_attn launches in "
+              f"generate")
+        return {"batch": b, "prompt": s, "new": GEN_NEW,
+                "max_seq": cfg.max_seq, "generate_s": gen_s,
+                "prefill_s": prefill_s,
+                "decode_ms_per_step": (gen_s - prefill_s) / GEN_NEW * 1e3,
+                "tokens_per_s": b * GEN_NEW / gen_s,
+                "prefill_vs_forward_rel": pre_rel,
+                "prefill_vs_forward_top1": pre_top1,
+                "decode_vs_forward_rel": dec_rel, "logit_rtol": LOGIT_RTOL,
+                "decode_vs_forward": self._profile(dec[:, 0], full),
+                "tri_attn_launches": launches, "cache": cache,
+                "sample": res.tokens[0, s:s + 8].tolist()}
+
+    def _demo(self, argv: list) -> dict:
+        """The LM demo entry point, as a user runs it: its command, wall
+        seconds and printed lines, held to have generated every step."""
         from repro_torch.launch import serve
 
-        argv = ["--arch", RWKV_ARCH, "--batch", "4", "--prompt-len", "64",
-                "--max-new", "32"]
         out = io.StringIO()
-        n0 = WK.WKV_LAUNCHES
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             serve.main(argv)
         demo_s = time.perf_counter() - t0
         lines = out.getvalue().splitlines()
-        check(any("generated 32 steps x 4 seqs" in ln for ln in lines),
-              f"LM demo printed {lines}")
-        check(WK.WKV_LAUNCHES - n0 == RWKV_LAUNCHES,
-              f"{WK.WKV_LAUNCHES - n0} wkv launches in the LM demo")
-        emit({"phase": "rwkv_demo", "card": self.card,
-              "command": "python -m repro_torch.launch.serve " + " ".join(argv),
-              "seconds": demo_s, "wkv_launches": WK.WKV_LAUNCHES - n0,
-              "stdout": lines})
+        batch, new = argv[argv.index("--batch") + 1], \
+            argv[argv.index("--max-new") + 1]
+        check(any(f"generated {new} steps x {batch} seqs" in ln
+                  for ln in lines), f"the LM demo printed {lines}")
+        return {"card": self.card,
+                "command": "python -m repro_torch.launch.serve "
+                + " ".join(argv), "seconds": demo_s, "stdout": lines}
+
+    def _free(self) -> None:
+        import gc
+
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def _stub_states(self, b, t, d, seed):
+        """Stub patch or frame embeddings (B, T, d) × 0.1, bf16."""
+        torch = self.torch
+        return (torch.randn((b, t, d), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(seed)) * 0.1).to(torch.bfloat16)
+
+    def _cross_layer_fp32(self, layer, cfg, x, states):
+        """One vlm cross layer in fp32 on the same inputs: (tanh(gate) ·
+        attention over ``states``, the layer's output)."""
+        torch = self.torch
+        F = torch.nn.functional
+        from repro_torch.models.common import rms_norm, swiglu
+
+        p = layer.attn
+        b, s, d = x.shape
+        t = states.shape[1]
+        h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        xf, sf = x.float(), states.float()
+        n1 = rms_norm(xf, layer.ln1.float())
+        q = (n1 @ p.wq.float().reshape(d, h * hd)).view(b, s, h, hd)
+        k = (sf @ p.wk.float().reshape(d, hk * hd)).view(b, t, hk, hd)
+        v = (sf @ p.wv.float().reshape(d, hk * hd)).view(b, t, hk, hd)
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True).transpose(1, 2).reshape(b, s, h * hd)
+        branch = (o @ p.wo.float()) * torch.tanh(layer.xattn_gate.float())
+        x1 = xf + branch
+        m = layer.mlp
+        out = x1 + swiglu(rms_norm(x1, layer.ln2.float()), m.gate.float(),
+                          m.up.float(), m.down.float())
+        return branch, out
+
+    def _cross_layer_held(self, params, cfg, tokens, extra) -> dict:
+        """Group 0's cross layer on its own inputs (the hidden state after
+        the group's self layers in an xla forward, the vision states) in
+        bf16 against ``_cross_layer_fp32``: the attention branch and the
+        layer's output to CROSS_RTOL of their max; the fp32 layer over half
+        the states (a control) must miss the branch's gate."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        from repro_torch.models.attention import gqa_apply
+        from repro_torch.models.common import rms_norm
+
+        g0 = params.groups[0]
+        with torch.inference_mode():
+            x = T._embed(params, cfg, tokens)
+            for lp in g0.self_layers:
+                x, _ = T._layer_apply(lp, cfg, x)
+            cross = g0.cross
+            branch, _ = gqa_apply(cross.attn, cfg, rms_norm(x, cross.ln1),
+                                  cross_kv=extra)
+            branch = branch * torch.tanh(cross.xattn_gate).to(branch.dtype)
+            out, _ = T._layer_apply(cross, cfg, x, cross_kv=extra)
+            want_branch, want_out = self._cross_layer_fp32(cross, cfg, x,
+                                                           extra)
+            half, _ = self._cross_layer_fp32(cross, cfg, x,
+                                             extra[:, :extra.shape[1] // 2])
+
+        def rel(a, w):
+            return float((a.float() - w).abs().max()) / float(w.abs().max())
+
+        got = {"branch_rel": rel(branch, want_branch),
+               "out_rel": rel(out, want_out),
+               "control_half_states_branch_rel": rel(branch, half),
+               "branch_max_abs": float(want_branch.abs().max()),
+               "out_max_abs": float(want_out.abs().max()),
+               "rtol": CROSS_RTOL}
+        check(got["branch_rel"] <= CROSS_RTOL and got["out_rel"] <= CROSS_RTOL,
+              f"cross layer vs fp32: {got}")
+        check(got["control_half_states_branch_rel"] > CROSS_RTOL,
+              f"the half-states control passed the cross gate: {got}")
+        return got
+
+    def vlm_forward(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import count_params
+
+        self._free()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(VLM_ARCH)
+        t0 = time.perf_counter()
+        self.vlm_params = T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        params = self.vlm_params
+        for g in params.groups:         # the reference's init gate is 0
+            g.cross.xattn_gate.fill_(VLM_GATE)
+        self.sync()
+        init_s = time.perf_counter() - t0
+        n_params = count_params(params)
+        check(n_params == VLM_PARAMS, f"{VLM_ARCH}: {n_params} parameters")
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (1, VLM_SEQ), dtype=np.int64)).cuda()
+        extra = self._stub_states(1, cfg.vision_seq, cfg.d_model, 4)
+        T.forward(params, cfg, tokens[:, :256], extra)      # warm-up
+        self.sync()
+        self.reset_counts()
+        held = self._scoring(params, cfg, tokens, extra, VLM_LAUNCHES,
+                             VLM_ARCH)
+        counts = self.counts()
+        self.launches["tri_attn_sm90"] = self.launches.get(
+            "tri_attn_sm90", 0) + counts["tri_attn_sm90"]
+        cross = self._cross_layer_held(params, cfg, tokens, extra)
+        emit({"phase": "vlm_forward", "card": self.card, "arch": VLM_ARCH,
+              "params": n_params, "dtype": cfg.dtype,
+              "tokens": list(tokens.shape), "vision_states": list(extra.shape),
+              "xattn_gate": VLM_GATE, "init_s": init_s, **held,
+              "cross_layer_vs_fp32": cross, "main_path_launches": counts,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    def vlm_generate(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+
+        params = self.vlm_params
+        cfg = get_config(VLM_ARCH).replace(max_seq=GEN_PROMPT + GEN_NEW)
+        prompts = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int64)).cuda()
+        extra = self._stub_states(GEN_BATCH, cfg.vision_seq, cfg.d_model, 6)
+        got = self._generate_held(params, cfg, prompts, extra, VLM_ARCH)
+        got.pop("cache")
+        emit({"phase": "vlm_generate", "card": self.card, "arch": VLM_ARCH,
+              "vision_states": list(extra.shape), **got,
+              "note": "each decode step projects the 8 cross layers' k, v "
+                      "from the vision states again, as the reference does",
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del self.vlm_params, params, extra
+        self._free()
+        emit({"phase": "vlm_demo", **self._demo(
+            ["--arch", VLM_ARCH, "--batch", "4", "--prompt-len", "32",
+             "--max-new", "32"])})
+        self._free()
+
+    def whisper_forward(self) -> None:
+        import numpy as np
+
+        torch, AK = self.torch, self.AK
+        from repro_torch.configs import get_config
+        from repro_torch.kernels.tri_attn.ops import causal_attention
+        from repro_torch.kernels.tri_attn.ref import causal_attention_ref
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import count_params
+
+        self._free()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(WHISPER_ARCH)
+        t0 = time.perf_counter()
+        self.whisper_params = T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        params = self.whisper_params
+        self.sync()
+        init_s = time.perf_counter() - t0
+        n_params = count_params(params)
+        check(n_params == WHISPER_PARAMS,
+              f"{WHISPER_ARCH}: {n_params} parameters")
+        toks = torch.from_numpy(np.random.default_rng(7).integers(
+            0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_SEQ_PLAIN),
+            dtype=np.int64)).cuda()
+        tokens = toks[:, :WHISPER_SEQ]
+        frames = self._stub_states(WHISPER_BATCH, cfg.encoder_seq,
+                                   cfg.d_model, 8)
+        T.forward(params, cfg, tokens[:, :128], frames)       # warm-up
+        self.sync()
+        self.reset_counts()
+        held = self._scoring(params, cfg, tokens, frames, WHISPER_LAUNCHES,
+                             WHISPER_ARCH)
+        counts = self.counts()
+        self.launches["tri_attn_sm90"] = self.launches.get(
+            "tri_attn_sm90", 0) + counts["tri_attn_sm90"]
+        # at 448 tokens (448 % 128 != 0) the decoder takes the plain SDPA
+        n0 = AK.ATTN_LAUNCHES
+        plain448 = {impl: T.forward(params, cfg.replace(attn_impl=impl),
+                                    toks, frames)
+                    for impl in ("pallas_mapped", "xla")}
+        self.sync()
+        launches448 = AK.ATTN_LAUNCHES - n0
+        check(launches448 == 0, f"{launches448} tri_attn launches at S "
+              f"{WHISPER_SEQ_PLAIN}")
+        check(torch.equal(plain448["pallas_mapped"], plain448["xla"]),
+              f"at S {WHISPER_SEQ_PLAIN} pallas_mapped is not the xla path")
+        del plain448
+        # tri_attn at the decoder's shape: (B·H 128, S 384, D 64), bf16
+        q, k, v = self._attn_inputs(WHISPER_BATCH, cfg.n_heads,
+                                    cfg.n_kv_heads, WHISPER_SEQ,
+                                    cfg.head_dim, torch.bfloat16,
+                                    torch.Generator(device="cuda")
+                                    .manual_seed(9))
+        blk = cfg.attn_block
+        check(AK.attention_route(q.dtype, blk, cfg.head_dim) == "sm90",
+              "the whisper shape does not take the sm90 route")
+        o = causal_attention(q, k, v, blk, blk, "mapped")
+        want = causal_attention_ref(q, k, v)
+        err = float((o.float() - want.float()).abs().max())
+        check(err < ATTN_TOL["bfloat16"],
+              f"tri_attn at the whisper shape: vs ref {err}")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        bound_ms, bound = self._attn_bound_ms(
+            WHISPER_BATCH, cfg.n_heads, cfg.n_kv_heads, WHISPER_SEQ,
+            cfg.head_dim, 2)
+        shape_row = {
+            "shape": {"B": WHISPER_BATCH, "H": cfg.n_heads,
+                      "Hk": cfg.n_kv_heads, "S": WHISPER_SEQ,
+                      "D": cfg.head_dim, "block": blk, "dtype": "bfloat16"},
+            "ms": self.time_ms(lambda: causal_attention(q, k, v, blk, blk,
+                                                        "mapped")),
+            "bb_ms": self.time_ms(lambda: causal_attention(
+                q, k, v, blk, blk, "bounding_box")),
+            "plain_ms": self.time_ms(lambda: causal_attention_ref(q, k, v)),
+            "library_ms": self.time_ms(lambda: sdpa(q, k, v,
+                                                    is_causal=True)),
+            "bound_ms": bound_ms, **bound, "max_abs_err": err}
+        self.attn_row["at_whisper_shape"] = shape_row
+        emit({"phase": "whisper_forward", "card": self.card,
+              "arch": WHISPER_ARCH, "params": n_params, "dtype": cfg.dtype,
+              "tokens": list(tokens.shape), "frames": list(frames.shape),
+              "init_s": init_s, **held,
+              "plain_at_s": {"tokens": list(toks.shape),
+                             "tri_attn_launches": launches448,
+                             "equal_to_xla": True},
+              "tri_attn_at_decoder_shape": shape_row,
+              "main_path_launches": counts,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    def whisper_generate(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.models.attention import heads
+
+        params = self.whisper_params
+        cfg = get_config(WHISPER_ARCH).replace(
+            max_seq=WHISPER_GEN_PROMPT + GEN_NEW)
+        prompts = torch.from_numpy(np.random.default_rng(10).integers(
+            0, cfg.vocab_size, (GEN_BATCH, WHISPER_GEN_PROMPT),
+            dtype=np.int64)).cuda()
+        frames = self._stub_states(GEN_BATCH, cfg.encoder_seq, cfg.d_model,
+                                   11)
+        got = self._generate_held(params, cfg, prompts, frames, WHISPER_ARCH)
+        cache = got.pop("cache")
+        # decode reads the cross k/v that prefill projected once: equal to
+        # a fresh projection of the encoder states, layer by layer
+        with torch.inference_mode():
+            enc = T._whisper_encode(params, cfg, frames)
+            hk, hd = cfg.n_kv_heads, cfg.head_dim
+            fresh = all(
+                torch.equal(cache["cross"]["k"][i],
+                            heads(enc, lp.xattn.wk, hk, hd))
+                and torch.equal(cache["cross"]["v"][i],
+                                heads(enc, lp.xattn.wv, hk, hd))
+                for i, lp in enumerate(params.dec_layers))
+        check(fresh, "the cached cross k/v differ from a fresh projection")
+        emit({"phase": "whisper_generate", "card": self.card,
+              "arch": WHISPER_ARCH, "frames": list(frames.shape), **got,
+              "cross_cache": list(cache["cross"]["k"].shape),
+              "cross_cache_equals_fresh_projection": fresh,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del self.whisper_params, params, cache, enc
+        self._free()
+        emit({"phase": "whisper_demo", **self._demo(
+            ["--arch", WHISPER_ARCH, "--batch", "4", "--prompt-len",
+             str(WHISPER_GEN_PROMPT), "--max-new", "32"])})
+        self._free()
+
+    # -- the engine backend and continuous batching --------------------------
+    def _engine_entry_point(self, extra: list, domains: list,
+                            want: dict) -> dict:
+        """``python -m repro_torch.launch.serve --serve-maps --backend
+        engine`` as a user runs it: the paper domains derived by
+        SERVE_CLIENTS concurrent clients at one model and stage, every
+        record deployable, ``key`` queries at MAX_POINTS bit-identical to
+        the domain queries, /metrics' batching section, SIGINT and exit 0."""
+        import os
+        import signal
+        import threading
+
+        from repro_torch.core.backends import MODEL_SPECS
+        from repro_torch.serving import RemoteMappingService
+        from repro_torch.serving.evaluate import MAX_POINTS
+
+        mode = "threaded" if "--no-async" in extra else "async"
+        work = ROOT / "build" / "engine_serve" / mode
+        work.mkdir(parents=True, exist_ok=True)
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "REPRO_ARTIFACT_CACHE": str(work / "store")}
+        argv = [sys.executable, "-m", "repro_torch.launch.serve",
+                "--serve-maps", "--backend", "engine", "--port", "0", *extra]
+        command = "python -m repro_torch.launch.serve " + " ".join(argv[3:])
+        with open(work / "stderr.txt", "w") as err:
+            proc = subprocess.Popen(argv, env=env, cwd=ROOT,
+                                    stdout=subprocess.PIPE, stderr=err,
+                                    text=True)
+        try:
+            t0 = time.perf_counter()
+            first = proc.stdout.readline()
+            boot_s = time.perf_counter() - t0
+            check(first.startswith("mapping service on http://")
+                  and "backend=engine" in first,
+                  f"{command} printed {first!r} (stderr in "
+                  f"{work / 'stderr.txt'})")
+            url = first.split()[3]
+            derived, errors = {}, []
+            gate = threading.Barrier(SERVE_CLIENTS)
+
+            def one(i):
+                try:
+                    c = RemoteMappingService(url, timeout=600)
+                    gate.wait()
+                    for d in domains[i::SERVE_CLIENTS]:
+                        t = time.perf_counter()
+                        res = c.derive(d, ENGINE_MODEL, ENGINE_STAGE)
+                        derived[d] = (res, time.perf_counter() - t)
+                    c.close()
+                except Exception as e:  # noqa: BLE001 — re-raised below
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            derive_s = time.perf_counter() - t0
+            check(not errors, f"{command}: derives failed: {errors}")
+            check(sorted(derived) == domains, f"{command}: derived "
+                  f"{sorted(derived)}")
+            check(all(r.compiled and r.artifact is not None
+                      and r.artifact.deployable for r, _ in derived.values()),
+                  f"{command}: an engine-derived record does not deploy")
+            client = RemoteMappingService(url, timeout=300)
+            t0 = time.perf_counter()
+            got = client.evaluate_batch(
+                [{"key": derived[d][0].cache_key, "n_points": MAX_POINTS}
+                 for d in domains])
+            key_s = time.perf_counter() - t0
+            metrics = client.metrics()
+            stats = metrics["batching"][ENGINE_MODEL]
+            if mode == "async":
+                check(stats.get("max_occupancy", 0) > 1,
+                      f"{command}: continuous batching never held more "
+                      f"than one request: {stats}")
+            for d, r in zip(domains, got):
+                check(r["coords"].dtype == want[d].dtype
+                      and r["coords"].tobytes() == want[d].tobytes(),
+                      f"{command}: key query for {d} differs from the "
+                      f"domain query")
+            client.close()
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=SERVE_BOOT_S)
+            check(proc.returncode == 0,
+                  f"{command} exited {proc.returncode} on SIGINT")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        power_w = MODEL_SPECS[ENGINE_MODEL]["power_w"]
+        per_derive = {
+            d: {"wall_s": wall, "inference_s": r.response.seconds,
+                "tokens_out": r.response.tokens_out,
+                "ms_per_decode_step_share":
+                    r.response.seconds / r.response.tokens_out * 1e3,
+                "joules_model_specs_power": r.response.joules,
+                "cache_key": r.cache_key}
+            for d, (r, wall) in sorted(derived.items())}
+        return {"command": command, "first_line": first.strip(),
+                "boot_s": boot_s, "derive_s": derive_s,
+                "per_derive": per_derive,
+                "model_specs_power_w": power_w, "batching": stats,
+                "service": metrics["service"], "key_queries_s": key_s,
+                "key_points": MAX_POINTS * len(domains),
+                "evaluate": metrics.get("evaluate"), "rc": proc.returncode}
+
+    def engine_serve(self) -> None:
+        """EngineBackend on the card with the yi-6b smoke config, as the
+        reference's: generate_batch against singles, tokens and measured
+        seconds; then ``--serve-maps --backend engine`` in both modes."""
+        import shutil
+
+        import numpy as np
+
+        from repro_torch.core import paper_tables as pt
+        from repro_torch.core.backends import (
+            MODEL_SPECS, EngineBackend, build_prompt,
+        )
+        from repro_torch.core.compile_cache import CompileCache
+        from repro_torch.serving.evaluate import MAX_POINTS, EvaluationService
+
+        t_phase = time.perf_counter()
+        shutil.rmtree(ROOT / "build" / "engine_serve", ignore_errors=True)
+        domains = sorted(pt.ACCURACY)
+        metas = [{"domain": d, "stage": ENGINE_STAGE} for d in domains]
+        prompts = [build_prompt(self.DOMAINS[d], ENGINE_STAGE)
+                   for d in domains]
+        backend = EngineBackend(ENGINE_MODEL)
+        self.reset_counts()
+        t0 = time.perf_counter()
+        params, cfg = backend._ensure_engine()
+        self.sync()
+        init_s = time.perf_counter() - t0
+        check(params.embed.is_cuda, "EngineBackend's model is not on the card")
+        backend.generate(prompts[0], meta=metas[0])          # warm-up
+        batch = backend.generate_batch(prompts, metas)
+        singles = [backend.generate(p, meta=m)
+                   for p, m in zip(prompts, metas)]
+        check([r.text for r in batch] == [r.text for r in singles],
+              "generate_batch text differs from single generates")
+        check(all(r.tokens_out == backend.max_new_tokens and r.seconds > 0
+                  and r.joules > 0 for r in batch + singles),
+              "an engine response without its decode steps or seconds")
+        _, rows, steps, batch_s = backend.sample(prompts)
+        single_rows = [backend.sample([p]) for p in prompts]
+        check(all(np.array_equal(rows[i], s[1][0])
+                  for i, s in enumerate(single_rows)),
+              "the batch's sampled tokens differ from the singles'")
+        counts = self.counts()
+        check(all(n == 0 for n in counts.values()),
+              f"the engine's smoke model launched kernels: {counts}")
+        single_s = [s[3] for s in single_rows]
+        emit({"phase": "engine_serve", "part": "backend", "card": self.card,
+              "arch": backend.arch, "model": ENGINE_MODEL,
+              "prompt_tokens": backend.prompt_tokens,
+              "max_new_tokens": backend.max_new_tokens, "init_s": init_s,
+              "batch": len(prompts), "batch_s": batch_s,
+              "single_s": single_s,
+              "decode_ms_per_step_single":
+                  statistics.median(single_s) / steps * 1e3,
+              "decode_ms_per_step_batch": batch_s / steps * 1e3,
+              "joules_model_specs_power": [r.joules for r in singles],
+              "model_specs_power_w": MODEL_SPECS[ENGINE_MODEL]["power_w"],
+              "batch_text_equals_singles": True, "launches": counts})
+        del backend, params
+        self._free()
+
+        ev = EvaluationService(compile_cache=CompileCache(max_entries=64))
+        res, _ = ev.evaluate_batch([{"domain": d, "n_points": MAX_POINTS}
+                                    for d in domains])
+        want = {d: r["coords"] for d, r in zip(domains, res)}
+        entry = [self._engine_entry_point(extra, domains, want)
+                 for extra in ([], ["--no-async"])]
+        emit({"phase": "engine_serve", "part": "entry_point",
+              "card": self.card, "model": ENGINE_MODEL,
+              "stage": ENGINE_STAGE, "domains": domains,
+              "clients": SERVE_CLIENTS, "entry_point": entry,
+              "phase_s": time.perf_counter() - t_phase})
 
     def kernels_line(self) -> None:
         """One row per kernel.  Map rows: launches are paper_scale's main
@@ -2705,6 +3287,11 @@ def main() -> int:
     smoke.attention()
     smoke.lm_forward()
     smoke.lm_generate()
+    smoke.vlm_forward()
+    smoke.vlm_generate()
+    smoke.whisper_forward()
+    smoke.whisper_generate()
+    smoke.engine_serve()
     smoke.wkv()
     smoke.rwkv_forward()
     smoke.rwkv_generate()

@@ -6,38 +6,46 @@ LM prefill/decode demo:
         --batch 4 --prompt-len 32 --max-new 32
 
 ``--arch`` takes a ported family's arch: the dense ones (yi-6b,
-llama3.2-3b, ...) and rwkv6-3b (ssm).  Weights are random, from a
-``torch.Generator`` seeded 0 and made on ``--device`` (default ``cuda``;
-``--device cpu`` for a machine without a card, with ``--smoke`` for the
-reduced config).
+llama3.2-3b, ...), llama-3.2-vision-11b (vlm), rwkv6-3b (ssm) and
+whisper-medium (audio).  Weights are random, from a ``torch.Generator``
+seeded 0 and made on ``--device`` (default ``cuda``; ``--device cpu`` for a
+machine without a card, with ``--smoke`` for the reduced config).  The vlm
+and audio archs get stub patch or frame embeddings (a seeded
+``torch.Generator`` on ``--device``, × 0.1) as their ``extra`` input.
 
 Networked mapping service (HTTP frontend over a MappingService):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --serve-maps \
-        --port 8000 --max-batch 8 --max-wait 0.01
+        --backend engine --port 8000 --max-batch 8 --max-wait 0.01
 
 ``--backend`` picks the inference backend behind the service: ``mock``
-(paper replay bank) or ``ollama`` (live local GGUF models); ``engine``
-raises until ``EngineBackend`` is ported (ROADMAP queue 1 item 7).  Derive
-requests for the same model are admitted through a batching queue
-(``--max-batch`` / ``--max-wait`` / ``--max-pending``); same-cell requests
-coalesce inside the service.  ``POST /v1/evaluate`` launches the map and
-membership kernels on the card; without one, a query must say
-``"interpret": true`` (the kernels' plain versions on the CPU) or it is
-refused.
+(paper replay bank), ``engine`` (real prefill/decode on the in-repo smoke
+transformer of ``--arch``, default yi-6b, on the card unless ``--device
+cpu`` — see ``core/backends.EngineBackend``) or ``ollama`` (live local GGUF
+models).  Derive requests for the same model are admitted through a
+batching queue (``--max-batch`` / ``--max-wait`` / ``--max-pending``);
+same-cell requests coalesce inside the service.  ``POST /v1/evaluate``
+launches the map and membership kernels on the card; without one, a query
+must say ``"interpret": true`` (the kernels' plain versions on the CPU) or
+it is refused.
 
 By default the service runs on the asyncio event-loop frontend
-(``serving/aio.py``); ``--no-async`` restores the threaded
-``ThreadingHTTPServer``.  The first line printed names the URL.
+(``serving/aio.py``) and — for the engine backend — continuous batching
+(``--decode-slots`` / ``--admission-timeout``): new derives join in-flight
+decode batches at the next step boundary.  ``--no-async`` restores the
+threaded ``ThreadingHTTPServer`` + gather-then-drain batching.  The first
+line printed names the URL.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 
 import numpy as np
 import torch
+
 
 def _backend_factory(args):
     from repro_torch.core import backends
@@ -45,7 +53,10 @@ def _backend_factory(args):
     if args.backend == "mock":
         return backends.MockLLMBackend
     if args.backend == "engine":
-        raise NotImplementedError(backends.UNPORTED_ENGINE_BACKEND)
+        return functools.partial(
+            backends.EngineBackend, arch=args.arch,
+            max_new_tokens=args.max_new, temperature=args.temperature,
+            device=args.device)
     if args.backend == "ollama":
         return backends.OllamaBackend
     raise ValueError(f"unknown backend {args.backend!r}")
@@ -149,16 +160,23 @@ def serve_maps(args) -> None:
     """Boot the full stack: backend -> batching queue -> MappingService ->
     HTTP frontend (-> cluster membership), then serve until interrupted.
 
-    ``--async`` (the default) serves from the asyncio event-loop frontend;
-    ``--no-async`` falls back to the threaded server.  Both admit derives
-    through the gather-then-drain batching queue.  ``POST /v1/evaluate``
-    launches the map kernels on the card (a query's ``"interpret": true``
-    runs their plain versions on the CPU instead)."""
+    ``--async`` (the default) serves from the asyncio event-loop frontend,
+    with the engine backend behind continuous batching; ``--no-async``
+    falls back to the threaded server, and every backend goes through the
+    gather-then-drain batching queue.  The engine runs on ``--device``: on
+    a machine without a card it refuses to start unless ``--device cpu``.
+    ``POST /v1/evaluate`` launches the map kernels on the card (a query's
+    ``"interpret": true`` runs their plain versions on the CPU instead)."""
     from repro_torch.core import compile_cache
+    from repro_torch.core.backends import NO_CARD_ENGINE
     from repro_torch.serving import (
         AsyncMappingHTTPServer, MappingHTTPServer, MappingService,
-        batching_factory,
+        batching_factory, continuous_factory,
     )
+
+    if (args.backend == "engine" and torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
+        raise SystemExit(f"--backend engine: {NO_CARD_ENGINE}")
 
     # evaluation-plane knobs (flags win; REPRO_COMPILE_CACHE_* env fallback
     # is read inside configure_default/default_compile_cache)
@@ -169,9 +187,17 @@ def serve_maps(args) -> None:
             persist_dir=args.compile_cache_dir)
     cc = compile_cache.default_compile_cache()
 
-    factory = batching_factory(
-        _backend_factory(args), max_batch=args.max_batch,
-        max_wait=args.max_wait, max_pending=args.max_pending)
+    if args.use_async and args.backend == "engine":
+        # continuous batching: new derives join in-flight decodes at the
+        # next step boundary instead of waiting for the batch to drain
+        factory = continuous_factory(
+            _backend_factory(args), decode_slots=args.decode_slots,
+            max_pending=args.max_pending,
+            admission_timeout=args.admission_timeout)
+    else:
+        factory = batching_factory(
+            _backend_factory(args), max_batch=args.max_batch,
+            max_wait=args.max_wait, max_pending=args.max_pending)
     service = MappingService(store=_store_from_args(args),
                              backend_factory=factory,
                              n_validate=args.n_validate)
@@ -211,6 +237,11 @@ def serve_maps(args) -> None:
     print(f"observability: tracing={'on' if args.observability else 'off'} "
           f"(X-Repro-Trace-Id; GET /v1/trace/<id>), metrics=json+prometheus "
           f"(GET /metrics?format=prometheus)")
+    if args.backend == "engine":
+        print(f"engine: arch={args.arch} device={args.device}")
+    if args.use_async and args.backend == "engine":
+        print(f"continuous batching: decode_slots={args.decode_slots} "
+              f"admission_timeout={args.admission_timeout}s")
     if cc is None:
         print("launcher cache: off")
     else:
@@ -267,9 +298,17 @@ def lm_demo(args) -> None:
 
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int64)
+    extra = None
+    if cfg.family in ("vlm", "audio"):
+        # stub patch / frame embeddings, already projected to d_model
+        frames = cfg.vision_seq if cfg.family == "vlm" else cfg.encoder_seq
+        extra = torch.randn(
+            (args.batch, frames, cfg.d_model), device=args.device,
+            generator=torch.Generator(device=args.device).manual_seed(1)) \
+            * 0.1
     t0 = time.perf_counter()
     res = generate(params, cfg, torch.from_numpy(prompts), args.max_new,
-                   temperature=args.temperature)
+                   extra=extra, temperature=args.temperature)
     if args.device != "cpu":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -282,22 +321,24 @@ def lm_demo(args) -> None:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="yi-6b", help="model arch (LM demo)")
+    p.add_argument("--arch", default="yi-6b",
+                   help="model arch (LM demo; also the engine backend's "
+                        "smoke config)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--max-new", type=int, default=32)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--device", default="cuda",
-                   help="where the weights live and the model runs")
+                   help="where the weights live and the model runs (the LM "
+                        "demo and the engine backend)")
     # networked mapping service
     p.add_argument("--serve-maps", action="store_true",
                    help="serve mapping derivations over HTTP instead of "
                         "running the LM demo")
     p.add_argument("--backend", choices=("mock", "engine", "ollama"),
                    default="mock",
-                   help="inference backend for --serve-maps (engine: not "
-                        "ported yet, ROADMAP queue 1 item 7)")
+                   help="inference backend for --serve-maps")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--n-validate", type=int, default=100_000,
@@ -320,7 +361,7 @@ def main(argv=None) -> None:
     p.add_argument("--decode-slots", type=int, default=8,
                    help="continuous batching: max requests decoding "
                         "concurrently across cohorts (engine backend, "
-                        "async mode; waits for ROADMAP queue 1 item 7)")
+                        "async mode)")
     p.add_argument("--admission-timeout", type=float, default=30.0,
                    metavar="SECONDS",
                    help="continuous batching: a request waiting longer than "

@@ -9,8 +9,10 @@ The causal score space is the paper's 2D lower-triangular domain;
   * "pallas_mapped" — the CUDA tri_attn kernel, mapped λ grid (paper),
   * "pallas_bb"     — the CUDA tri_attn kernel, bounding-box grid
                       (paper baseline).
-The kernel is reached only by a cache-less pass (``forward``): prefill and
-decode go through ``_sdpa``, as in the reference.
+The kernel is reached only by a cache-less causal pass (``forward``):
+prefill, decode and cross-attention (``cross_kv``: k and v projected from
+encoder or vision states, no RoPE, no mask, no cache) go through ``_sdpa``,
+as in the reference.
 
 Caches are updated in place (the reference returns new arrays); the cache
 dict's ``idx`` is a Python int.
@@ -27,8 +29,6 @@ _Q_CHUNK = 256
 
 UNPORTED_MLA = ("MLA attention (deepseek-v2) is not ported yet: ROADMAP "
                 "queue 1 item 8 (other model families)")
-UNPORTED_CROSS = ("cross-attention (vlm, whisper) is not ported yet: ROADMAP "
-                  "queue 1 item 7 (LM engine, the rest)")
 UNPORTED_XLA_MAPPED = ("attn_impl='xla_mapped' (the dry-run's mapped XLA "
                        "attention) is not ported yet: ROADMAP queue 1 item 10 "
                        "(launch and analysis tooling)")
@@ -103,6 +103,13 @@ def gqa_init(generator: torch.Generator, cfg, dtype, device=None) -> GQAAttentio
         dense_init(generator, h * hd, d, dtype, device=device), **norms)
 
 
+def heads(x, w, n_heads: int, head_dim: int):
+    """(B, T, d) @ w (d, n_heads, head_dim) -> (B, T, n_heads, head_dim)."""
+    b, t, d = x.shape
+    return (x @ w.reshape(d, n_heads * head_dim)).view(b, t, n_heads,
+                                                       head_dim)
+
+
 def _pallas_causal(q, k, v, grid_mode: str, block: int, interpret: bool):
     from repro_torch.kernels.tri_attn.ops import causal_attention
 
@@ -113,17 +120,19 @@ def _pallas_causal(q, k, v, grid_mode: str, block: int, interpret: bool):
 
 def gqa_apply(p: GQAAttention, cfg, x, *, positions=None, cache=None,
               cross_kv=None):
-    """Returns (out, new_cache). x: (B, S, d)."""
-    if cross_kv is not None:
-        raise NotImplementedError(UNPORTED_CROSS)
-    b, s, d = x.shape
+    """Returns (out, new_cache). x: (B, S, d); cross_kv: (B, T, d) states
+    that k and v are projected from (cross-attention: no cache)."""
+    b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p.wq.reshape(d, h * hd)).view(b, s, h, hd)
-    k = (x @ p.wk.reshape(d, hk * hd)).view(b, s, hk, hd)
-    v = (x @ p.wv.reshape(d, hk * hd)).view(b, s, hk, hd)
+    q = heads(x, p.wq, h, hd)
+    src = x if cross_kv is None else cross_kv
+    k, v = heads(src, p.wk, hk, hd), heads(src, p.wv, hk, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
+    if cross_kv is not None:               # rectangular box domain, no mask
+        out = _sdpa(q, k, v, hk, None)
+        return out.reshape(b, s, h * hd) @ p.wo, None
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     positions = torch.as_tensor(positions, device=x.device).expand(b, s)

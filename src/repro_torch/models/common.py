@@ -46,6 +46,22 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 statistics, then the affine in x's dtype."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * weight + bias
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """Whisper's MLP: down( gelu(x@up) ), with the tanh GELU that
+    ``jax.nn.gelu`` computes by default (torch's default is the erf form)."""
+    return F.gelu(x @ w_up, approximate="tanh") @ w_down
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""

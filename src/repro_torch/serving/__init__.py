@@ -15,11 +15,14 @@ application/x-repro-binary``, plus the encoded-response LRU both frontends
 serve warm evaluates from).  Both frontends carry the observability plane
 (``repro_torch.obs``): per-request traces (``X-Repro-Trace-Id`` ->
 ``GET /v1/trace/<id>``) and a metrics registry served as JSON and
-Prometheus text (``GET /metrics?format=prometheus``).
-
-Continuous batching for the engine backend (``async_engine``) waits for
-``EngineBackend``: ROADMAP queue 1 item 7."""
+Prometheus text (``GET /metrics?format=prometheus``).  Continuous
+batching (``async_engine``: step-interleaved cohort scheduler) drives the
+engine backend's prefill / decode steps."""
 from repro_torch.serving.aio import AsyncMappingHTTPServer  # noqa: F401
+from repro_torch.serving.async_engine import (  # noqa: F401
+    AsyncEngineBackend, ContinuousBatcher, ContinuousBatchingBackend,
+    ContinuousStats, EngineStepper, continuous_factory,
+)
 from repro_torch.serving.batching import (  # noqa: F401
     AdmissionError, BatchingBackend, BatchStats, batching_factory,
 )

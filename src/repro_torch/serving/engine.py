@@ -3,11 +3,14 @@
 Static-shape batching: a batch of requests is padded to a common prompt
 length, prefilled in one pass, then decoded step by step with
 ``decode_step`` against a batch-major cache (fixed-``max_seq`` k/v for the
-dense family, the fixed-size RWKV state for ``ssm``).  Dense prefill and
-decode run the plain SDPA, as in the reference: the tri_attn kernel is
-reached only by a cache-less ``forward``.  An RWKV prefill of a prompt whose
-length is a multiple of 64 runs the chunked WKV, and so the wkv kernel; its
-decode steps (one token) run the scan.
+dense, vlm and audio families, the fixed-size RWKV state for ``ssm``).
+``extra`` carries the vlm family's vision states or the audio family's
+frames: whisper's prefill projects every decoder layer's cross k/v once into
+the cache, and a vlm decode step projects them again from ``extra``, as in
+the reference.  Prefill and decode run the plain SDPA, as in the reference:
+the tri_attn kernel is reached only by a cache-less ``forward``.  An RWKV
+prefill of a prompt whose length is a multiple of 64 runs the chunked WKV,
+and so the wkv kernel; its decode steps (one token) run the scan.
 """
 from __future__ import annotations
 
@@ -42,9 +45,12 @@ def greedy(logits, generator: torch.Generator | None = None,
 def generate(params, cfg, prompts, max_new_tokens: int, extra=None,
              temperature: float = 0.0, seed: int = 0,
              eos_id: int | None = None) -> GenerationResult:
-    """prompts: (B, S) ints, already padded. Greedy when temperature=0."""
+    """prompts: (B, S) ints, already padded; extra: (B, T, d) vision states
+    or frames (vlm, audio), else None. Greedy when temperature=0."""
     device = params.embed.device
     prompts = torch.as_tensor(prompts, dtype=torch.int64, device=device)
+    if extra is not None:      # once, not at every decode step
+        extra = torch.as_tensor(extra, device=device).to(params.embed.dtype)
     b, s = prompts.shape
     if s + max_new_tokens > cfg.max_seq:
         raise ValueError(f"cache too small: prompt {s} + {max_new_tokens} new "

@@ -118,8 +118,26 @@ def test_canonical_code_equal_for_every_domain():
 
 
 def test_engine_backend_waits_on_its_queue_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tb.EngineBackend("OSS:120b")
+    """EngineBackend (ROADMAP queue 1 item 7) is ported: an engine derive
+    on the CPU gives the reference's content address and, through the
+    canonical fallback, its record (timing and inference fields aside)."""
+    dom, stage = "tri2d", 20
+    mine = tp.derive_mapping(
+        TDOMAINS[dom], tb.EngineBackend("OSS:120b", max_new_tokens=4,
+                                        device="cpu"),
+        stage, n_validate=2000, sample_every=1, cache=None)
+    ref = rp.derive_mapping(
+        RDOMAINS[dom], rb.EngineBackend("OSS:120b", max_new_tokens=4),
+        stage, n_validate=2000, sample_every=1, cache=None)
+    assert mine.cache_key == ref.cache_key
+    assert mine.source == ref.source and mine.compiled and ref.compiled
+    assert mine.response.tokens_out == ref.response.tokens_out == 4
+    ra, rr = mine.artifact.to_record(), ref.artifact.to_record()
+    measured = {k for k in rr if k in ("created_unix", "inference_seconds")
+                or "joule" in k or "energy" in k}
+    assert set(ra) == set(rr) and "inference_seconds" in measured
+    assert {k: v for k, v in ra.items() if k not in measured} \
+        == {k: v for k, v in rr.items() if k not in measured}
 
 
 # ---------------------------------------------------------------------------

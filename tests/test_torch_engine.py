@@ -4,6 +4,11 @@ tests/test_engine.py's setup: the yi-6b smoke config (fp32), reference
 parameters loaded through ``params_from_jax``; and the rwkv6-3b smoke config
 (fp32), whose 64-token prompts take the chunked WKV (the wkv kernel's plain
 version, ``pallas_interpret=True``) and whose decode steps take the scan."""
+import os
+import signal
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +21,10 @@ from repro.serving.engine import generate as ref_generate
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_jax
+from repro_torch.serving import RemoteMappingService
 from repro_torch.serving.engine import generate, greedy
 
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 PROMPT_LEN = 8
 MAX_NEW = 6
 
@@ -134,9 +141,50 @@ def test_lm_demo_runs_rwkv_on_the_cpu(capsys):
     assert "generated 4 steps x 2 seqs" in out
 
 
-def test_lm_demo_serve_maps_is_not_ported():
-    """``--serve-maps`` itself is ported (held in
-    ``tests/test_torch_serving_launch.py``); its engine backend is not, and
-    it raises before any server starts, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        serve.main(["--serve-maps", "--backend", "engine", "--port", "0"])
+def test_lm_demo_serve_maps_is_not_ported(tmp_path):
+    """``--serve-maps --backend engine`` (ROADMAP queue 1 item 7, now
+    ported) as a user runs it, on a machine without a card: without
+    ``--device cpu`` it refuses to start and names that flag; with it, both
+    frontends serve a derive from the engine (continuous batching under
+    asyncio, the batching queue threaded) and exit 0 on SIGINT."""
+    env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC),
+           "CUDA_VISIBLE_DEVICES": "",
+           "REPRO_ARTIFACT_CACHE": str(tmp_path / "store")}
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--serve-maps",
+            "--backend", "engine", "--port", "0", "--n-validate", "2000",
+            "--max-new", "4"]
+    refused = subprocess.run(argv, env=env, capture_output=True, text=True,
+                             timeout=120)
+    assert refused.returncode != 0 and "--device cpu" in refused.stderr
+    for extra, section in (([], "continuous batching: decode_slots=8"),
+                           (["--no-async"], None)):
+        store = str(tmp_path / ("store" + "".join(extra)))  # cold each
+        proc = subprocess.Popen([*argv, "--device", "cpu", *extra],
+                                env={**env, "REPRO_ARTIFACT_CACHE": store},
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            first = proc.stdout.readline()
+            assert first.startswith("mapping service on http://"), (
+                first, proc.stderr.read() if proc.poll() is not None else "")
+            assert "backend=engine" in first
+            banner = [first]
+            while not banner[-1].startswith("endpoints:"):
+                banner.append(proc.stdout.readline())
+            assert "engine: arch=yi-6b device=cpu" in "".join(banner)
+            assert (section in "".join(banner)) if section else \
+                "continuous batching" not in "".join(banner)
+            client = RemoteMappingService(first.split()[3])
+            res = client.derive("tri2d", "OSS:120b", 20)
+            assert res.compiled and res.response.tokens_out == 4
+            stats = client.metrics()["batching"]["OSS:120b"]
+            assert ("max_occupancy" in stats) == bool(section)
+            assert stats["completed" if section else "requests"] >= 1
+            client.close()
+            proc.send_signal(signal.SIGINT)
+            _, err = proc.communicate(timeout=60)
+            assert proc.returncode == 0, err
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()

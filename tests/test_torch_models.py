@@ -308,10 +308,22 @@ def test_unported_families_raise(arch):
 
 
 def test_unported_attention_raises():
-    _, cfg, _, p = _gqa_pair()
+    """MLA (item 8) and xla_mapped (item 10) still raise.  Cross-attention
+    (item 7) is ported: ``cross_kv`` attends over the given states without
+    a mask and takes no cache (its parity is held in
+    ``tests/test_torch_cross_models.py``)."""
+    rcfg, cfg, rp, p = _gqa_pair()
     x = torch.zeros((1, 512, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        attention.gqa_apply(p, cfg, x[:, :8], cross_kv=x[:, :8])
+    xs = (_rng(8).standard_normal((1, 12, cfg.d_model)) * 0.3) \
+        .astype(np.float32)
+    q = (_rng(9).standard_normal((1, 8, cfg.d_model)) * 0.3) \
+        .astype(np.float32)
+    want, _ = ref_attn.gqa_apply(rp, rcfg, jnp.asarray(q),
+                                 cross_kv=jnp.asarray(xs))
+    got, cache = attention.gqa_apply(p, cfg, torch.from_numpy(q),
+                                     cross_kv=torch.from_numpy(xs))
+    assert cache is None
+    assert np.abs(_np(got) - _np(want)).max() < TOL
     with pytest.raises(NotImplementedError, match="item 10"):
         attention.gqa_apply(p, cfg.replace(attn_impl="xla_mapped"), x)
     with pytest.raises(NotImplementedError, match="item 8"):

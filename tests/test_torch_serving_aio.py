@@ -4,12 +4,10 @@ frontend speaks the same wire surface as the threaded server (pooled
 keep-alive clients work against either unchanged), typed backend errors map
 to 503/504 and surface as typed client errors after retry exhaustion, slow
 readers stall only their own stream, and the frontend sheds with 503 under
-admission pressure.
-
-Left out, waiting for ``EngineBackend`` and ``AsyncEngineBackend`` (ROADMAP
-queue 1 item 7): ``test_async_engine_backend_lifecycle``.  In its place,
-``test_async_backend_lifecycle`` drives the same server-managed lifecycle
-(start, ``/healthz``, close) through ``AsyncBackendAdapter``."""
+admission pressure.  ``test_async_engine_backend_lifecycle`` drives the
+continuous batcher's ``AsyncEngineBackend`` over an ``EngineBackend`` on the
+CPU (``device="cpu"``); ``test_async_backend_lifecycle`` drives the same
+server-managed lifecycle through ``AsyncBackendAdapter``."""
 import json
 import socket
 import threading
@@ -20,13 +18,15 @@ import pytest
 
 from repro_torch.core.artifact import ArtifactCache
 from repro_torch.core.backends import (
-    AsyncBackendAdapter, LLMBusyError, LLMTimeoutError, MockLLMBackend,
+    AsyncBackendAdapter, EngineBackend, LLMBusyError, LLMTimeoutError,
+    MockLLMBackend,
 )
 from repro_torch.serving import (
     AsyncMappingHTTPServer, BatchingBackend, MappingHTTPServer,
     MappingService, RemoteBusyError, RemoteMappingService,
     RemoteTimeoutError,
 )
+from repro_torch.serving.async_engine import AsyncEngineBackend
 
 MODEL = "OSS:120b"
 
@@ -174,6 +174,24 @@ def test_concurrent_same_cell_single_inference(tmp_path):
         assert factory.bank[MODEL].calls == 1
         assert len(set(out.values())) == 1
         assert len(out) == 16
+
+
+def test_async_engine_backend_lifecycle(tmp_path):
+    """The server drives AsyncLLMBackend lifecycles: health shows up in
+    /healthz, and close() tears the batcher down with the loop."""
+    inner = EngineBackend(MODEL, max_new_tokens=2, device="cpu")
+    backend = AsyncEngineBackend(inner, decode_slots=2)
+    factory = shared_factory()
+    server = make_async(tmp_path, factory, async_backends=[backend])
+    with server:
+        with urllib.request.urlopen(server.url + "/healthz",
+                                    timeout=10) as resp:
+            payload = json.loads(resp.read())
+        assert payload["loop"] == "asyncio"
+        assert payload["backends"] == {MODEL: True}
+    # server close() drove backend.close(): the batcher refuses new work
+    with pytest.raises(LLMBusyError):
+        backend.batcher.submit("p", {})
 
 
 def test_async_backend_lifecycle(tmp_path):

@@ -4,11 +4,8 @@ remote client + batching/admission — concurrent remote clients share one
 server-side derivation and one store, the wire schema round-trips
 byte-identically, and two servers with disjoint local stores replicate
 derivations through the peer tier (one backend inference for the whole
-fleet).
-
-Left out, waiting for ``EngineBackend`` (ROADMAP queue 1 item 7):
-``test_engine_backend_served_map_validates``.  In its place,
-``test_engine_backend_refuses_naming_item_7`` holds the refusal."""
+fleet).  ``EngineBackend`` runs on the CPU here (``device="cpu"``); without
+that it refuses, as ``test_engine_backend_refuses_naming_item_7`` holds."""
 import json
 import threading
 import time
@@ -17,9 +14,10 @@ import urllib.request
 
 import pytest
 
-from repro_torch.core import pipeline
+from repro_torch.core import pipeline, synthesis
 from repro_torch.core.artifact import ArtifactCache
 from repro_torch.core.backends import EngineBackend, LLMResponse, MockLLMBackend
+from repro_torch.core.domains import DOMAINS
 from repro_torch.core.store import PeerStore, build_store
 from repro_torch.serving import (
     AdmissionError, BatchingBackend, MappingHTTPServer, MappingService,
@@ -116,11 +114,47 @@ def test_two_concurrent_clients_one_inference(tmp_path):
         assert metrics["http"]["derive"]["p95_ms"] > 0
 
 
-def test_engine_backend_refuses_naming_item_7(tmp_path):
-    """EngineBackend is not ported: building one raises and names the
-    ROADMAP item it waits for, before any request is served."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        EngineBackend(MODEL, max_new_tokens=4)
+def test_engine_backend_served_map_validates(tmp_path):
+    """EngineBackend through POST /v1/derive on a smoke config: real
+    prefill/decode runs server-side, and the returned map passes
+    stage_validation."""
+    def factory(model):
+        return EngineBackend(model, max_new_tokens=4, device="cpu")
+
+    with make_server(tmp_path, factory) as server:
+        client = RemoteMappingService(server.url)
+        res = client.derive("tri2d", MODEL, 20)
+    assert res.compiled and res.source is not None
+    assert res.response.tokens_out == 4  # genuine decode steps
+    # re-validate the served source through the pipeline's own stage
+    req = pipeline.prepare_request(
+        DOMAINS["tri2d"], EngineBackend(MODEL, max_new_tokens=4), 20,
+        n_validate=2000, sample_every=1)
+    assert req.key == res.cache_key  # same content address client-side
+    rep, cls = pipeline.stage_validation(
+        req, synthesis.synthesize(res.source))
+    assert rep.ordered == 1.0
+    assert cls is not None
+
+
+def test_engine_backend_refuses_naming_item_7(tmp_path, monkeypatch):
+    """EngineBackend (ROADMAP queue 1 item 7, now ported) runs on the card
+    unless asked for the CPU: on a machine without one, a server built
+    around it answers a derive with an error naming ``device="cpu"``
+    instead of falling back, while ``device="cpu"`` serves."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    backend = EngineBackend(MODEL, max_new_tokens=4)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        backend.generate("p", meta={"domain": "tri2d", "stage": 20})
+    with make_server(tmp_path, lambda m: backend) as server:
+        client = RemoteMappingService(server.url, retries=0)
+        with pytest.raises(RemoteServiceError, match="device"):
+            client.derive("tri2d", MODEL, 20)
+    cpu = EngineBackend(MODEL, max_new_tokens=4, device="cpu")
+    resp = cpu.generate("p", meta={"domain": "tri2d", "stage": 20})
+    assert resp.tokens_out == 4 and resp.seconds > 0
 
 
 # ---------------------------------------------------------------------------

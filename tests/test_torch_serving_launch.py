@@ -4,8 +4,8 @@ with ``--no-async``), print their URL on the first line, answer
 ``GET /healthz`` and ``POST /v1/evaluate``, and exit 0 on SIGINT.  On a
 machine without a card (``CUDA_VISIBLE_DEVICES`` empty) an evaluate that
 does not say ``"interpret": true`` answers the kernels' NO_CARD error, and
-with it answers the exact coordinates.  (``--backend engine``, the one
-refusal, is held in ``tests/test_torch_engine.py``.)"""
+with it answers the exact coordinates.  (``--backend engine`` is held in
+``tests/test_torch_engine.py``.)"""
 import json
 import os
 import signal
