@@ -141,6 +141,34 @@ Phases, each printing one JSON line:
                against a forward over prompt + token, every layer's prefill
                time mix against the scan oracle on its own inputs; then the
                LM demo (--arch rwkv6-3b --prompt-len 64)
+  moe_forward  moonshot-v1-16b-a3b at full width (bf16, random weights from
+               a seeded torch.Generator), tokens (1, 4096): forward and
+               lm_loss under pallas_mapped, pallas_bb and xla, 48 sm90
+               launches per kernel forward, CE against xla; the logits and
+               top-1 printed beside the routing flips and capacity drops of
+               each forward, not gated (a flip reroutes a token); every
+               layer on its own input: the attention core under both kernel
+               modes against xla (per-row gate), the MoE branch against the
+               layer with fp32 experts (equal routing), with controls; the
+               expert products read the weights in place and moe_apply
+               never syncs; tri_attn at (B·H 16, S 4096, D 128) timed
+  moe_generate engine.generate at batch 4, prompt 512, 32 greedy tokens,
+               drops per pass; a second prefill and decode step give
+               generate's tokens; whole-model prefill / decode against
+               forward printed, not gated; every layer of prefill and of
+               the first decode step against the cache-less layer on the
+               same inputs (decode at a capacity that drops nothing), a
+               one-short RoPE control; then the LM demo (--arch
+               moonshot-v1-16b-a3b)
+  hybrid_forward zamba2-1.2b at full width (bf16), tokens (1, 4096): the
+               lm_forward gates, 6 sm90 launches per kernel forward (one per
+               firing of the shared block); two Mamba2 layers' SSD, chunked
+               against the scan on their own inputs, with a restart
+               control; tri_attn at (B·H 32, S 4096, D 64) timed
+  hybrid_generate batch 4, prompt 512 (the chunked SSD), 32 greedy tokens
+               (the scan): prefill and the first decode step against
+               forward, one k/v cache per firing; then the LM demo (--arch
+               zamba2-1.2b --prompt-len 64)
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
@@ -358,6 +386,51 @@ WHISPER_LAUNCHES = 24          # one per decoder self layer
 WHISPER_GEN_PROMPT = 64
 #: engine_serve: the paper's 6 domains derived at one model and stage
 ENGINE_MODEL, ENGINE_STAGE = "OSS:120b", 20
+#: the moe path: moonshot-v1-16b-a3b at full width (48 layers, d_model
+#: 2048, MHA 16/16 of 128, 64 experts top-6 of width 1408 and 2 shared;
+#: 57.8 GB in bf16), tokens (1, 4096)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_PARAMS = 28_888_467_456
+MOE_SEQ = 4096
+MOE_LAUNCHES = 48              # one per layer
+#: one layer's branch in bf16 against another evaluation of the same math
+#: on the same input, max |Δ| over the other's max |value|: the MoE branch
+#: against the same layer with its expert and shared weights upcast to fp32
+#: (the router reads the same fp32 numbers, so routing must be equal), and
+#: prefill's and the first decode step's attention branch and layer output
+#: against the cache-less layer's.  The bf16 paths round each product's
+#: output, the SwiGLU's product, the weighted outputs and their sum to bf16
+#: (2^-9 of an element each), well under 1e-2 of the max; the gate is 3e-2,
+#: as CROSS_RTOL.  Controls must miss it: the fp32 MoE without the
+#: renormalisation of its top-k weights, and without its shared experts; a
+#: decode step whose RoPE position is one short.
+MOE_LAYER_RTOL = 3e-2
+#: a decode step (4 tokens, capacity 8) is held against a cache-less layer
+#: over 4 x 513 tokens at this capacity factor: capacity_for gives every
+#: expert a slot for every token, so nothing drops and each token's output
+#: is its own; the normal factor's drops there are printed beside it
+MOE_NO_DROP_CF = 11.0
+#: the hybrid path: zamba2-1.2b at full width (38 Mamba2 layers, d_inner
+#: 4096, 64 heads of 64, state 64; one shared attention + MLP block, MHA
+#: 32/32 of 64, d_ff 8192), tokens (1, 4096)
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_PARAMS = 1_170_473_856
+HYBRID_SEQ = 4096
+HYBRID_LAUNCHES = 6            # the shared block fires after layers 5, ..., 35
+#: top-1 kernel vs xla is printed, not gated, for zamba2: at random weights
+#: its logits are flat (xla's top-2 margin is small against max |logit|),
+#: so the bf16 noise of six attention firings reorders the best two at
+#: about 7% of positions (0.932 on an H100) while the logits stay within
+#: FWD_LOGIT_RTOL; each firing's attention is held on its own input instead
+#: one Mamba2 layer's SSD on its own inputs at full width, the chunked form
+#: against the scan, fp32 inside both: max |Δ| over max |value| of y and of
+#: the final state.  The reference's test holds the two to 1e-5 absolute at
+#: small widths (tests/test_models.py); fp32 sums taken in other orders stay
+#: near 1e-6 of the max; the gate is 1e-4.  A control must miss it: the
+#: chunked form restarted from a zero state at S/2.
+MAMBA_CORE_RTOL = 1e-4
+#: the Mamba2 layers held so: the first, and the first after a firing
+MAMBA_HELD_LAYERS = (0, 6)
 
 
 def emit(obj: dict) -> None:
@@ -367,6 +440,63 @@ def emit(obj: dict) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|, in fp32."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / float(want.abs().max())
+
+
+@contextlib.contextmanager
+def _captured(owner, name: str, keep):
+    """Within the block every call of ``owner.name`` also appends
+    ``keep(args, kwargs, result)`` to the yielded list."""
+    real = getattr(owner, name)
+    seen: list = []
+
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(keep(args, kw, out))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield seen
+    finally:
+        setattr(owner, name, real)
+
+
+def _routing_diff(a: list, b: list):
+    """Per token (flattened over the batch), whether two passes' routing of
+    one MoE call differs: the top-k experts in rank order, or which of them
+    kept a slot."""
+    k = a["top_e"].shape[-1]
+    return ((a["top_e"].reshape(-1, k) != b["top_e"].reshape(-1, k)).any(-1)
+            | (a["keep"].reshape(-1, k) != b["keep"].reshape(-1, k)).any(-1))
+
+
+def _flips(a: list, b: list) -> int:
+    """(layer, token) routing decisions that differ between two passes."""
+    check(len(a) == len(b), f"{len(a)} against {len(b)} MoE calls")
+    return int(sum(int(_routing_diff(x, y).sum()) for x, y in zip(a, b)))
+
+
+def _drops(rec: list) -> int:
+    """Assignments dropped (no slot left in their expert) over the calls."""
+    return int(sum(int((~r["keep"]).sum()) for r in rec))
+
+
+def _late_rows_drop_first_partial(attend, q, k, v, block, grid_mode,
+                                  interpret=False):
+    """``attend``'s output with every row from S/2 on missing its j = 0
+    partial, as a combine that starts one partial late would."""
+    o = attend(q, k, v, block, block, grid_mode, interpret)
+    half = q.shape[2] // 2
+    tail = attend(q[:, :, block:], k[:, :, block:], v[:, :, block:], block,
+                  block, grid_mode, interpret)
+    o[:, :, half:] = tail[:, :, half - block:]
+    return o
 
 
 class Smoke:
@@ -386,6 +516,7 @@ class Smoke:
         self.totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "n": 0}
                        for k in self.max_err}
         self.attn_row = {}
+        self.sm90_paths = {}           # sm90 launches per main path
         self.attn_simt_row = {}
         self.wkv_row = {}
         self.paper_ms = {}
@@ -1924,6 +2055,7 @@ class Smoke:
                       "pair_launches_per_call": simt_per_call}
         counts = self.counts()
         self.launches["tri_attn_sm90"] = counts["tri_attn_sm90"]
+        self.sm90_paths["lm_forward"] = counts["tri_attn_sm90"]
         self.launches["tri_attn_simt"] = (counts["tri_attn"]
                                           - counts["tri_attn_sm90"])
         x = logits["xla"]
@@ -2617,25 +2749,39 @@ class Smoke:
 
     # -- the cross-attention LMs (vlm, audio) --------------------------------
     def _scoring(self, params, cfg, tokens, extra, want_launches: int,
-                 what: str) -> dict:
+                 what: str, routed: bool = False,
+                 gate_top1: bool = True) -> dict:
         """forward and lm_loss with ``extra`` under pallas_mapped, pallas_bb
         and xla: ``want_launches`` sm90 tri_attn launches per kernel forward
         (none under xla), finite logits, kernel logits within FWD_LOGIT_RTOL
         of xla's max |logit| and mapped within it of BB, top-1 and CE against
-        xla (TOP1_MIN, CE_RTOL).  Returns the phase's fields."""
+        xla (TOP1_MIN, CE_RTOL).  Returns the phase's fields.
+
+        ``routed`` (a MoE model): a rounding difference that moves a token's
+        router logits past a tie sends it to other experts, and 48 layers
+        carry such flips into most tokens, so the logits and top-1 say
+        nothing about the kernel there: they are printed beside the count of
+        (layer, token) routing decisions that differ from xla's and each
+        forward's capacity drops, and not gated; CE stays a gate (its mean
+        over 4096 positions stays within CE_RTOL at random weights).  The
+        kernel is held layer by layer on each layer's own input instead
+        (``_moe_layer_gates``).  ``gate_top1=False`` prints top-1 beside
+        xla's top-2 margins instead of gating it (see ``hybrid_forward``)."""
         torch, AK = self.torch, self.AK
+        from repro_torch.models import moe
         from repro_torch.models import transformer as T
         from repro_torch.train.train_step import lm_loss
 
         batch = {"tokens": tokens, "labels": tokens.roll(-1, 1),
                  "extra": extra}
-        rows, logits = {}, {}
+        rows, logits, routing = {}, {}, {}
         for impl in ("pallas_mapped", "pallas_bb", "xla"):
             c = cfg.replace(attn_impl=impl)
             n0 = AK.ATTN_LAUNCHES, AK.ATTN_SM90_LAUNCHES
             t0 = time.perf_counter()
-            out = T.forward(params, c, tokens, extra)
-            self.sync()
+            with moe.record_routing() as routing[impl]:
+                out = T.forward(params, c, tokens, extra)
+                self.sync()
             fwd_s = time.perf_counter() - t0
             n1 = AK.ATTN_LAUNCHES, AK.ATTN_SM90_LAUNCHES
             t0 = time.perf_counter()
@@ -2665,22 +2811,48 @@ class Smoke:
                              .abs().max()) / scale
         top1 = float((logits["pallas_mapped"].argmax(-1) == x.argmax(-1))
                      .float().mean())
+        # xla's margin between its two best logits, over max |logit|, and
+        # the positions where the kernel's change there can reorder them
+        top2 = x[..., :cfg.vocab_size].topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]) / scale
+        moved = (logits["pallas_mapped"] - x).abs().amax(-1) / scale
+        margins = {"p50": float(margin.median()),
+                   "share_within_2x_change": float(
+                       (margin <= 2 * moved).float().mean())}
+        del top2, margin, moved
         ce_rel = abs(rows["pallas_mapped"]["ce"] - rows["xla"]["ce"]) \
             / abs(rows["xla"]["ce"])
         del logits, x
-        for name, r in rel.items():
-            check(r <= FWD_LOGIT_RTOL,
-                  f"{what}: logits {name} vs xla {r} of max |logit|")
-        check(mapped_vs_bb <= FWD_LOGIT_RTOL,
-              f"{what}: logits mapped vs BB {mapped_vs_bb} of max |logit|")
-        check(top1 >= TOP1_MIN, f"{what}: top-1 kernel vs xla {top1}")
+        if not routed:
+            for name, r in rel.items():
+                check(r <= FWD_LOGIT_RTOL,
+                      f"{what}: logits {name} vs xla {r} of max |logit|")
+            check(mapped_vs_bb <= FWD_LOGIT_RTOL,
+                  f"{what}: logits mapped vs BB {mapped_vs_bb} of max "
+                  f"|logit|")
+            if gate_top1:
+                check(top1 >= TOP1_MIN, f"{what}: top-1 kernel vs xla {top1}")
         check(ce_rel <= CE_RTOL, f"{what}: CE kernel vs xla relative "
               f"{ce_rel}")
-        return {"impls": rows, "logit_rel_vs_xla_by_impl": rel,
-                "logit_rel_mapped_vs_bb": mapped_vs_bb,
-                "logit_rtol": FWD_LOGIT_RTOL, "top1_vs_xla": top1,
-                "top1_min": TOP1_MIN, "ce_rel_vs_xla": ce_rel,
-                "ce_rtol": CE_RTOL, "max_abs_logit_xla": scale}
+        got = {"impls": rows, "logit_rel_vs_xla_by_impl": rel,
+               "logit_rel_mapped_vs_bb": mapped_vs_bb,
+               "logit_rtol": FWD_LOGIT_RTOL, "top1_vs_xla": top1,
+               "top1_min": TOP1_MIN, "top1_gated": gate_top1 and not routed,
+               "xla_top2_margin_rel": margins, "ce_rel_vs_xla": ce_rel,
+               "ce_rtol": CE_RTOL, "max_abs_logit_xla": scale}
+        if routed:
+            n_dec = len(routing["xla"]) * tokens.numel()
+            got["logits_and_top1_gated"] = False
+            got["routing"] = {
+                "decisions_per_forward": n_dec,
+                "flips_vs_xla": {i: _flips(routing[i], routing["xla"])
+                                 for i in ("pallas_mapped", "pallas_bb")},
+                "flips_mapped_vs_bb": _flips(routing["pallas_mapped"],
+                                             routing["pallas_bb"]),
+                "drops_by_impl": {i: _drops(r) for i, r in routing.items()},
+                "drops_by_layer_xla": [_drops([r]) for r in routing["xla"]],
+                "assignments_per_forward": n_dec * cfg.moe_top_k}
+        return got
 
     def _generate_held(self, params, cfg, prompts, extra, what: str) -> dict:
         """engine.generate with ``extra``, then a second prefill against a
@@ -2866,8 +3038,7 @@ class Smoke:
         held = self._scoring(params, cfg, tokens, extra, VLM_LAUNCHES,
                              VLM_ARCH)
         counts = self.counts()
-        self.launches["tri_attn_sm90"] = self.launches.get(
-            "tri_attn_sm90", 0) + counts["tri_attn_sm90"]
+        self._add_sm90("vlm_forward", counts)
         cross = self._cross_layer_held(params, cfg, tokens, extra)
         emit({"phase": "vlm_forward", "card": self.card, "arch": VLM_ARCH,
               "params": n_params, "dtype": cfg.dtype,
@@ -2901,13 +3072,55 @@ class Smoke:
              "--max-new", "32"])})
         self._free()
 
+    def _add_sm90(self, path: str, counts: dict) -> None:
+        """A main path's sm90 tri_attn launches into the kernels line."""
+        self.launches["tri_attn_sm90"] = self.launches.get(
+            "tri_attn_sm90", 0) + counts["tri_attn_sm90"]
+        self.sm90_paths[path] = counts["tri_attn_sm90"]
+
+    def _attn_shape_row(self, b, cfg, s, seed, what) -> dict:
+        """tri_attn (sm90, bf16) at a model's shape: its error against
+        causal_attention_ref and the medians of single calls, mapped and
+        BB, beside the bound, the plain version's and
+        scaled_dot_product_attention's (the yardstick only)."""
+        torch, AK = self.torch, self.AK
+        from repro_torch.kernels.tri_attn.ops import causal_attention
+        from repro_torch.kernels.tri_attn.ref import causal_attention_ref
+
+        h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v = self._attn_inputs(b, h, hk, s, d, torch.bfloat16,
+                                    torch.Generator(device="cuda")
+                                    .manual_seed(seed))
+        blk = cfg.attn_block
+        check(AK.attention_route(q.dtype, blk, d) == "sm90",
+              f"the {what} shape does not take the sm90 route")
+        g = h // hk
+        kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        o = causal_attention(q, k, v, blk, blk, "mapped")
+        want = causal_attention_ref(q, kr, vr)
+        err = float((o.float() - want.float()).abs().max())
+        check(err < ATTN_TOL["bfloat16"],
+              f"tri_attn at the {what} shape: vs ref {err}")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        bound_ms, bound = self._attn_bound_ms(b, h, hk, s, d, 2)
+        return {
+            "shape": {"B": b, "H": h, "Hk": hk, "S": s, "D": d, "block": blk,
+                      "dtype": "bfloat16"},
+            "ms": self.time_ms(lambda: causal_attention(q, k, v, blk, blk,
+                                                        "mapped")),
+            "bb_ms": self.time_ms(lambda: causal_attention(
+                q, k, v, blk, blk, "bounding_box")),
+            "plain_ms": self.time_ms(lambda: causal_attention_ref(q, kr,
+                                                                  vr)),
+            "library_ms": self.time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                                    enable_gqa=g > 1)),
+            "bound_ms": bound_ms, **bound, "max_abs_err": err}
+
     def whisper_forward(self) -> None:
         import numpy as np
 
         torch, AK = self.torch, self.AK
         from repro_torch.configs import get_config
-        from repro_torch.kernels.tri_attn.ops import causal_attention
-        from repro_torch.kernels.tri_attn.ref import causal_attention_ref
         from repro_torch.models import transformer as T
         from repro_torch.models.common import count_params
 
@@ -2935,8 +3148,7 @@ class Smoke:
         held = self._scoring(params, cfg, tokens, frames, WHISPER_LAUNCHES,
                              WHISPER_ARCH)
         counts = self.counts()
-        self.launches["tri_attn_sm90"] = self.launches.get(
-            "tri_attn_sm90", 0) + counts["tri_attn_sm90"]
+        self._add_sm90("whisper_forward", counts)
         # at 448 tokens (448 % 128 != 0) the decoder takes the plain SDPA
         n0 = AK.ATTN_LAUNCHES
         plain448 = {impl: T.forward(params, cfg.replace(attn_impl=impl),
@@ -2950,35 +3162,8 @@ class Smoke:
               f"at S {WHISPER_SEQ_PLAIN} pallas_mapped is not the xla path")
         del plain448
         # tri_attn at the decoder's shape: (B·H 128, S 384, D 64), bf16
-        q, k, v = self._attn_inputs(WHISPER_BATCH, cfg.n_heads,
-                                    cfg.n_kv_heads, WHISPER_SEQ,
-                                    cfg.head_dim, torch.bfloat16,
-                                    torch.Generator(device="cuda")
-                                    .manual_seed(9))
-        blk = cfg.attn_block
-        check(AK.attention_route(q.dtype, blk, cfg.head_dim) == "sm90",
-              "the whisper shape does not take the sm90 route")
-        o = causal_attention(q, k, v, blk, blk, "mapped")
-        want = causal_attention_ref(q, k, v)
-        err = float((o.float() - want.float()).abs().max())
-        check(err < ATTN_TOL["bfloat16"],
-              f"tri_attn at the whisper shape: vs ref {err}")
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        bound_ms, bound = self._attn_bound_ms(
-            WHISPER_BATCH, cfg.n_heads, cfg.n_kv_heads, WHISPER_SEQ,
-            cfg.head_dim, 2)
-        shape_row = {
-            "shape": {"B": WHISPER_BATCH, "H": cfg.n_heads,
-                      "Hk": cfg.n_kv_heads, "S": WHISPER_SEQ,
-                      "D": cfg.head_dim, "block": blk, "dtype": "bfloat16"},
-            "ms": self.time_ms(lambda: causal_attention(q, k, v, blk, blk,
-                                                        "mapped")),
-            "bb_ms": self.time_ms(lambda: causal_attention(
-                q, k, v, blk, blk, "bounding_box")),
-            "plain_ms": self.time_ms(lambda: causal_attention_ref(q, k, v)),
-            "library_ms": self.time_ms(lambda: sdpa(q, k, v,
-                                                    is_causal=True)),
-            "bound_ms": bound_ms, **bound, "max_abs_err": err}
+        shape_row = self._attn_shape_row(WHISPER_BATCH, cfg, WHISPER_SEQ, 9,
+                                         "whisper")
         self.attn_row["at_whisper_shape"] = shape_row
         emit({"phase": "whisper_forward", "card": self.card,
               "arch": WHISPER_ARCH, "params": n_params, "dtype": cfg.dtype,
@@ -3216,6 +3401,585 @@ class Smoke:
               "clients": SERVE_CLIENTS, "entry_point": entry,
               "phase_s": time.perf_counter() - t_phase})
 
+    # -- the moe family ------------------------------------------------------
+    def _attn_core_held(self, attn_p, cfg, n1, what, worst,
+                        control: bool = False):
+        """One causal attention on its own normed input ``n1``: the core's
+        output under pallas_mapped and pallas_bb against xla's ``_sdpa`` on
+        the same q, k, v, every element within ATTN_TOL, rows S/2 and on
+        within LATE_ROW_RTOL of the row's max |o| (the ``attention``
+        phase's gates), mapped within ATTN_TOL of BB; the worst values
+        into ``worst``.  With ``control``, also the late-row error of the
+        kernel's output with rows S/2 and on missing their first partial
+        (a control that must miss that gate).  Returns (xla's branch
+        output, the control's error or None)."""
+        torch = self.torch
+        from repro_torch.kernels.tri_attn import ops
+        from repro_torch.models import attention as attn
+
+        s = n1.shape[1]
+        half = s // 2
+        pos = torch.arange(s, device=n1.device)[None]
+        keep = (lambda a, kw, out: (a[0], a[1], a[2], out))
+        with _captured(ops, "causal_attention", keep) as calls:
+            h = {impl: attn.gqa_apply(attn_p, cfg.replace(attn_impl=impl),
+                                      n1)[0]
+                 for impl in ("pallas_mapped", "pallas_bb")}
+        h_xla = attn.gqa_apply(attn_p, cfg.replace(attn_impl="xla"), n1)[0]
+        check(len(calls) == 2, f"{what}: {len(calls)} kernel calls for two "
+              f"kernel attentions")
+        q, k, v, _ = calls[0]
+        want = attn._sdpa(*(t.transpose(1, 2) for t in (q, k, v)),
+                          cfg.n_kv_heads, pos).transpose(1, 2).float()
+
+        def gates(o):
+            o = o.float()
+            late = ((o[:, :, half:] - want[:, :, half:]).abs().amax(-1)
+                    / want[:, :, half:].abs().amax(-1))
+            return float((o - want).abs().max()), float(late.max())
+
+        for (_, _, _, o), impl in zip(calls, h):
+            err, late = gates(o)
+            check(err < ATTN_TOL["bfloat16"] and late < LATE_ROW_RTOL,
+                  f"{what} {impl}: attention vs xla {err} (late rows {late} "
+                  f"of the row's max)")
+            worst["attn_err"] = max(worst.get("attn_err", 0.0), err)
+            worst["attn_late_rows_rel"] = max(
+                worst.get("attn_late_rows_rel", 0.0), late)
+            worst["attn_branch_rel_vs_xla"] = max(
+                worst.get("attn_branch_rel_vs_xla", 0.0),
+                _rel(h[impl], h_xla))
+        mb = float((calls[0][3].float() - calls[1][3].float()).abs().max())
+        check(mb < ATTN_TOL["bfloat16"], f"{what}: attention mapped vs BB "
+              f"{mb}")
+        worst["attn_mapped_vs_bb"] = max(worst.get("attn_mapped_vs_bb", 0.0),
+                                         mb)
+        ctrl = None
+        if control:
+            fault = _late_rows_drop_first_partial(
+                ops.causal_attention, q, k, v, cfg.attn_block, "mapped",
+                cfg.pallas_interpret)
+            ctrl = gates(fault)[1]
+            check(ctrl > LATE_ROW_RTOL, f"{what}: the missing-partial "
+                  f"control passed the late-row gate ({ctrl})")
+        return h_xla, ctrl
+
+    def _moe_layer_gates(self, params, cfg, tokens) -> dict:
+        """Each layer on its own input (the hidden state entering it in an
+        xla forward).  (a) The attention core, ``_attn_core_held`` (its
+        control on layer 0).  (b) The MoE branch in bf16 against the same
+        layer with its expert and shared weights upcast to fp32, on the
+        same input: equal routing, output within MOE_LAYER_RTOL; on the
+        first and last layer the fp32 layer without top-k renormalisation
+        and without its shared experts must miss that gate."""
+        import types
+
+        torch = self.torch
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import rms_norm
+
+        last = cfg.n_layers - 1
+        with _captured(T, "_layer_apply", lambda a, kw, out: a[2]) as inputs:
+            T.forward(params, cfg.replace(attn_impl="xla"), tokens)
+        check(len(inputs) == cfg.n_layers, f"{len(inputs)} layer inputs")
+        worst = {"moe_rel_vs_fp32": 0.0}
+        controls, drops = {}, 0
+        with torch.inference_mode():
+            for li, (lp, x) in enumerate(zip(params.layers, inputs)):
+                h_xla, ctrl = self._attn_core_held(
+                    lp.attn, cfg, rms_norm(x, lp.ln1), f"layer {li}", worst,
+                    control=li == 0)
+                if ctrl is not None:
+                    controls["attn_late_rows_missing_first_partial"] = ctrl
+                inner = rms_norm(x + h_xla, lp.ln2)
+                m = lp.moe
+                with moe.record_routing() as r16:
+                    out16 = moe.moe_apply(m, cfg, inner)
+                up = types.SimpleNamespace
+                p32 = up(router=m.router, gate=m.gate.float(),
+                         up=m.up.float(), down=m.down.float(),
+                         shared=up(gate=m.shared.gate.float(),
+                                   up=m.shared.up.float(),
+                                   down=m.shared.down.float()))
+                with moe.record_routing() as r32:
+                    out32 = moe.moe_apply(p32, cfg, inner.float())
+                check(not bool(_routing_diff(r16[0], r32[0]).any())
+                      and torch.equal(r16[0]["slot"], r32[0]["slot"]),
+                      f"layer {li}: bf16 and fp32 MoE route differently on "
+                      f"the same router input")
+                rel = _rel(out16, out32)
+                check(rel <= MOE_LAYER_RTOL,
+                      f"layer {li}: MoE bf16 vs fp32 {rel}")
+                worst["moe_rel_vs_fp32"] = max(worst["moe_rel_vs_fp32"],
+                                               rel)
+                drops += _drops(r16)
+                if li in (0, last):
+                    un = moe.moe_apply(p32, cfg.replace(moe_renormalize=False),
+                                       inner.float())
+                    p32.shared = None
+                    no_shared = moe.moe_apply(p32, cfg, inner.float())
+                    controls[f"layer{li}_moe_not_renormalised"] = \
+                        _rel(out16, un)
+                    controls[f"layer{li}_moe_no_shared_experts"] = \
+                        _rel(out16, no_shared)
+                    del un, no_shared
+                del p32, out16, out32, inner, h_xla
+        for name, c in controls.items():
+            if not name.startswith("attn"):
+                check(c > MOE_LAYER_RTOL,
+                      f"the control {name} passed its gate ({c})")
+        del inputs
+        return {"worst": worst, "controls": controls,
+                "late_row_rtol": LATE_ROW_RTOL,
+                "attn_tol": ATTN_TOL["bfloat16"],
+                "moe_layer_rtol": MOE_LAYER_RTOL, "drops_xla_forward": drops,
+                "layers": cfg.n_layers}
+
+    def _host_profile(self, fn) -> dict:
+        """Host side of one ``fn()`` under torch.profiler (CPU activity):
+        its wall ms to a synchronise (profiled), the aten ops dispatched,
+        their self CPU time and the ops taking the most of it."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+        top = sorted(ev, key=lambda e: e.self_cpu_time_total, reverse=True)
+        return {"wall_ms": wall,
+                "aten_calls": int(sum(e.count for e in ev)),
+                "aten_self_cpu_ms": sum(e.self_cpu_time_total
+                                        for e in ev) / 1e3,
+                "top_self_cpu": [[e.key, e.count,
+                                  e.self_cpu_time_total / 1e3]
+                                 for e in top[:8]]}
+
+    def _moe_experts_in_place(self, params, cfg) -> dict:
+        """The expert products at the forward's capacity read the stored
+        (d, E, f) / (f, E, d) weights in place (no copy in the trace of the
+        call), and a whole ``moe_apply`` runs with CUDA's sync debug mode
+        at "error": the dispatch never waits on the host."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.models import moe
+
+        m = params.layers[0].moe
+        cap = moe.capacity_for(MOE_SEQ, cfg)
+        buf = torch.randn((cfg.n_experts, cap, cfg.d_model), device="cuda",
+                          dtype=torch.bfloat16)
+        with torch.inference_mode():
+            moe._experts(m, buf)
+            self.sync()
+            m0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                moe._experts(m, buf)
+                self.sync()
+            peak = torch.cuda.max_memory_allocated() - m0
+            ops_seen = sorted({e.key for e in prof.key_averages()})
+            copies = [o for o in ops_seen if o in ("aten::copy_",
+                                                   "aten::clone")]
+            check(not copies, f"the expert products copy: {copies}")
+            x = (torch.randn((1, MOE_SEQ, cfg.d_model), device="cuda")
+                 ).to(torch.bfloat16)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                moe.moe_apply(m, cfg, x, with_aux=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            self.sync()
+        weight_mb = m.gate.numel() * m.gate.element_size() / 1e6
+        check(peak < weight_mb * 1e6,
+              f"the expert products allocated {peak} bytes at their peak, "
+              f"more than one {weight_mb} MB weight")
+        return {"ops": ops_seen, "copies": copies, "buffer": list(buf.shape),
+                "peak_extra_mb": peak / 1e6, "one_weight_mb": weight_mb,
+                "moe_apply_under_sync_debug_error": True}
+
+    def moe_forward(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import count_params
+
+        self._free()
+        torch.cuda.reset_peak_memory_stats()
+        t_phase = time.perf_counter()
+        cfg = get_config(MOE_ARCH)
+        t0 = time.perf_counter()
+        self.moe_params = T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        params = self.moe_params
+        self.sync()
+        init_s = time.perf_counter() - t0
+        n_params = count_params(params)
+        check(n_params == MOE_PARAMS, f"{MOE_ARCH}: {n_params} parameters")
+        tokens = torch.from_numpy(np.random.default_rng(12).integers(
+            0, cfg.vocab_size, (1, MOE_SEQ), dtype=np.int64)).cuda()
+        T.forward(params, cfg, tokens[:, :256])      # warm-up
+        self.sync()
+        self.reset_counts()
+        held = self._scoring(params, cfg, tokens, None, MOE_LAUNCHES,
+                             MOE_ARCH, routed=True)
+        counts = self.counts()
+        self._add_sm90("moe_forward", counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        layers = self._moe_layer_gates(params, cfg, tokens)
+        layers["seconds"] = time.perf_counter() - t0
+        experts = self._moe_experts_in_place(params, cfg)
+        shape_row = self._attn_shape_row(1, cfg, MOE_SEQ, 13, MOE_ARCH)
+        self.attn_row["at_moonshot_shape"] = shape_row
+        emit({"phase": "moe_forward", "card": self.card, "arch": MOE_ARCH,
+              "params": n_params, "dtype": cfg.dtype,
+              "tokens": list(tokens.shape), "init_s": init_s, **held,
+              "layer_gates": layers, "expert_products": experts,
+              "tri_attn_at_moonshot_shape": shape_row,
+              "main_path_launches": counts, "peak_gb": peak_gb,
+              "phase_s": time.perf_counter() - t_phase})
+
+    def _moe_cache_gates(self, params, cfg, prompts) -> dict:
+        """Prefill, then the first decode step, each layer held against the
+        cache-less layer on the same inputs (the rows the pass handed that
+        layer): the attention branch, every token, within MOE_LAYER_RTOL;
+        the layer's output within it on every token whose routing equals
+        the cache-less layer's (those that differ are counted).  The decode
+        step's 4 tokens are held against the last of 4 x 513 at
+        MOE_NO_DROP_CF, the normal factor's drops there printed.  A decode
+        whose RoPE position is one short (layer 0) must miss the gate."""
+        torch = self.torch
+        from repro_torch.models import attention as attn
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import rms_norm
+
+        xcfg = cfg.replace(attn_impl="xla")
+        ndcfg = xcfg.replace(capacity_factor=MOE_NO_DROP_CF)
+
+        def traced(fn, *args):
+            with _captured(T, "_layer_apply",
+                           lambda a, kw, out: (a[2], out[0])) as lay, \
+                    _captured(attn, "gqa_apply",
+                              lambda a, kw, out: out[0]) as hs, \
+                    moe.record_routing() as rec:
+                out = fn(*args)
+            return out, lay, hs, rec
+
+        (pre, cache), lay_p, h_p, rec_p = traced(T.prefill, params, cfg,
+                                                 prompts)
+        nt = pre[:, -1:, :cfg.vocab_size].argmax(-1)
+        (dec, _), lay_d, h_d, rec_d = traced(T.decode_step, params, cfg, nt,
+                                             cache)
+        b, s = prompts.shape
+        worst = {"prefill_attn": 0.0, "prefill_layer": 0.0,
+                 "decode_attn": 0.0, "decode_layer": 0.0}
+        differing = {"prefill": 0, "decode": 0}
+        normal_drops_full = 0
+        with torch.inference_mode():
+            for li, lp in enumerate(params.layers):
+                x, y = lay_p[li][0], lay_d[li][0]
+                # prefill: the same 2048 tokens, the same capacity
+                with moe.record_routing() as r:
+                    out = T._layer_apply(lp, xcfg, x)[0]
+                h = attn.gqa_apply(lp.attn, xcfg, rms_norm(x, lp.ln1))[0]
+                worst["prefill_attn"] = max(worst["prefill_attn"],
+                                            _rel(h_p[li], h))
+                same = ~_routing_diff(rec_p[li], r[0]).reshape(b, s)
+                differing["prefill"] += int((~same).sum())
+                d = (lay_p[li][1] - out).float().abs().amax(-1)
+                if bool(same.any()):
+                    worst["prefill_layer"] = max(
+                        worst["prefill_layer"],
+                        float(d[same].max()) / float(out.float().abs().max()))
+                # decode: the new token against a cache-less pass over
+                # prompt + token at a capacity that drops nothing
+                xy = torch.cat([x, y], dim=1)
+                with moe.record_routing() as r:
+                    full = T._layer_apply(lp, ndcfg, xy)[0][:, -1:]
+                h = attn.gqa_apply(lp.attn, xcfg,
+                                   rms_norm(xy, lp.ln1))[0][:, -1:]
+                worst["decode_attn"] = max(worst["decode_attn"],
+                                           _rel(h_d[li], h))
+                k = cfg.moe_top_k
+                last = {key: r[0][key].reshape(b, s + 1, k)[:, -1]
+                        for key in ("top_e", "keep")}
+                same = ~_routing_diff(rec_d[li], last)
+                differing["decode"] += int((~same).sum())
+                d = (lay_d[li][1] - full).float().abs().amax(-1)[:, 0]
+                if bool(same.any()):
+                    worst["decode_layer"] = max(
+                        worst["decode_layer"],
+                        float(d[same].max()) / float(full.float().abs().max()))
+                loads = torch.bincount(r[0]["top_e"].flatten(),
+                                       minlength=cfg.n_experts)
+                cap = moe.capacity_for(b * (s + 1), cfg)
+                normal_drops_full += int((loads - cap).clamp(min=0).sum())
+                if li == 0:
+                    short = torch.full((b, 1), s - 1, device=y.device)
+                    wrong = attn.gqa_apply(lp.attn, cfg, rms_norm(y, lp.ln1),
+                                           positions=short,
+                                           cache=cache["layers"][0])[0]
+                    control = _rel(wrong, h)
+        for name, w in worst.items():
+            check(w <= MOE_LAYER_RTOL, f"{name} against the cache-less layer:"
+                  f" {w}")
+        check(control > MOE_LAYER_RTOL, f"the one-short RoPE control passed "
+              f"the decode gate ({control})")
+        return {"worst": worst, "rtol": MOE_LAYER_RTOL,
+                "tokens_with_other_routing": differing,
+                "decisions": {"prefill": b * s * cfg.n_layers,
+                              "decode": b * cfg.n_layers},
+                "drops": {"prefill": _drops(rec_p), "decode": _drops(rec_d),
+                          "cache_less_4x513_normal_cf": normal_drops_full,
+                          "cache_less_4x513_no_drop_cf": 0},
+                "no_drop_capacity_factor": MOE_NO_DROP_CF,
+                "control_rope_one_short_decode_attn": control}
+
+    def moe_generate(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as T
+        from repro_torch.serving.engine import generate
+
+        params = self.moe_params
+        cfg = get_config(MOE_ARCH).replace(max_seq=GEN_PROMPT + GEN_NEW)
+        prompts = torch.from_numpy(np.random.default_rng(14).integers(
+            0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int64)).cuda()
+        b, s, n_l = GEN_BATCH, GEN_PROMPT, cfg.n_layers
+        self.reset_counts()
+        with moe.record_routing() as rec:
+            t0 = time.perf_counter()
+            res = generate(params, cfg, prompts, GEN_NEW)
+            self.sync()
+            gen_s = time.perf_counter() - t0
+        check(res.steps == GEN_NEW and res.tokens.shape == (b, s + GEN_NEW),
+              f"{MOE_ARCH}: generate's shape")
+        check(bool((res.tokens[:, :s] == prompts).all()),
+              f"{MOE_ARCH}: generate changed the prompt")
+        check(len(rec) == n_l * (1 + GEN_NEW), f"{len(rec)} MoE calls")
+        gen_drops = {"prefill": _drops(rec[:n_l]),
+                     "decode_steps": _drops(rec[n_l:])}
+        del rec
+        t0 = time.perf_counter()
+        with moe.record_routing() as rec_pre:
+            pre, cache = T.prefill(params, cfg, prompts)
+            self.sync()
+        prefill_s = time.perf_counter() - t0
+        nt = pre[:, -1:, :cfg.vocab_size].argmax(-1)
+        check(torch.equal(nt, res.tokens[:, s:s + 1]),
+              f"{MOE_ARCH}: a second prefill's first token is not generate's")
+        dec, _ = T.decode_step(params, cfg, nt, cache)
+        check(torch.equal(dec[:, :, :cfg.vocab_size].argmax(-1),
+                          res.tokens[:, s + 1:s + 2]),
+              f"{MOE_ARCH}: a second first decode step's token is not "
+              f"generate's")
+        decode_profile = self._host_profile(
+            lambda: T.decode_step(params, cfg, nt, cache))
+        # the whole model against forward: printed, not gated (routing
+        # flips; see _scoring)
+        with moe.record_routing() as rec_fwd:
+            fwd = T.forward(params, cfg, prompts)
+        whole = {"prefill_vs_forward_rel": _rel(pre, fwd),
+                 "prefill_vs_forward_top1": float(
+                     (pre.argmax(-1) == fwd.argmax(-1)).float().mean()),
+                 "routing_flips_prefill_vs_forward": _flips(rec_pre, rec_fwd),
+                 "decisions": b * s * n_l}
+        del pre, fwd, rec_pre, rec_fwd
+        with moe.record_routing() as rec_full:
+            full = T.forward(params, cfg, torch.cat([prompts, nt], dim=1))
+        whole["decode_vs_forward_rel"] = _rel(dec[:, 0], full[:, -1])
+        whole["forward_4x513_drops"] = _drops(rec_full)
+        del full, dec, cache, rec_full
+        launches = self.AK.ATTN_LAUNCHES
+        check(launches == 0, f"{MOE_ARCH}: {launches} tri_attn launches in "
+              f"generate")
+        t0 = time.perf_counter()
+        layers = self._moe_cache_gates(params, cfg, prompts)
+        layers["seconds"] = time.perf_counter() - t0
+        emit({"phase": "moe_generate", "card": self.card, "arch": MOE_ARCH,
+              "batch": b, "prompt": s, "new": GEN_NEW,
+              "max_seq": cfg.max_seq, "generate_s": gen_s,
+              "prefill_s": prefill_s,
+              "decode_ms_per_step": (gen_s - prefill_s) / GEN_NEW * 1e3,
+              "tokens_per_s": b * GEN_NEW / gen_s, "generate_drops": gen_drops,
+              "whole_model_not_gated": whole, "layer_gates": layers,
+              "decode_step_host_profile": decode_profile,
+              "tri_attn_launches": launches,
+              "sample": res.tokens[0, s:s + 8].tolist(),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del self.moe_params, params
+        self._free()
+        emit({"phase": "moe_demo", **self._demo(
+            ["--arch", MOE_ARCH, "--batch", "4", "--prompt-len", "32",
+             "--max-new", "32"])})
+        self._free()
+
+    # -- the hybrid family ---------------------------------------------------
+    def _mamba_core_held(self, params, cfg, tokens) -> dict:
+        """MAMBA_HELD_LAYERS' SSD on each layer's own inputs (its conv
+        output and dt in an xla forward), chunked against the scan from a
+        zero state: y and the final state within MAMBA_CORE_RTOL; the
+        chunked form restarted at S/2 (a control) must miss it."""
+        torch = self.torch
+        from repro_torch.models import mamba2 as m2
+        from repro_torch.models import transformer as T
+
+        with _captured(m2, "mamba2_apply",
+                       lambda a, kw, out: (a[0], a[2])) as calls:
+            T.forward(params, cfg.replace(attn_impl="xla"), tokens)
+        check(len(calls) == cfg.n_layers, f"{len(calls)} Mamba2 calls")
+        rows = {}
+        s = tokens.shape[1]
+        h, n = cfg.mamba_heads, cfg.ssm_state
+        with torch.inference_mode():
+            for li in MAMBA_HELD_LAYERS:
+                p, xn = calls[li]
+                _, xbc, dt_raw = m2._split_proj(cfg, xn @ p.in_proj)
+                xbc_act, _ = m2._causal_conv(xbc, p.conv_w, p.conv_b)
+                st0 = torch.zeros((tokens.shape[0], h, cfg.mamba_d_inner // h,
+                                   n), dtype=torch.float32,
+                                  device=tokens.device)
+                t0 = time.perf_counter()
+                yc, sc = m2.mamba2_core_chunked(p, cfg, xbc_act, dt_raw, st0)
+                self.sync()
+                t1 = time.perf_counter()
+                ys, ss = m2.mamba2_core_scan(p, cfg, xbc_act, dt_raw, st0)
+                self.sync()
+                t2 = time.perf_counter()
+                y1, _ = m2.mamba2_core_chunked(p, cfg, xbc_act[:, :s // 2],
+                                               dt_raw[:, :s // 2], st0)
+                y2, _ = m2.mamba2_core_chunked(p, cfg, xbc_act[:, s // 2:],
+                                               dt_raw[:, s // 2:], st0)
+                row = {"y_rel": _rel(yc, ys), "state_rel": _rel(sc, ss),
+                       "control_restart_at_half_y_rel":
+                           _rel(torch.cat([y1, y2], dim=1), ys),
+                       "chunked_s": t1 - t0, "scan_s": t2 - t1,
+                       "y_max_abs": float(ys.abs().max())}
+                check(row["y_rel"] <= MAMBA_CORE_RTOL
+                      and row["state_rel"] <= MAMBA_CORE_RTOL,
+                      f"layer {li}: chunked SSD vs scan {row}")
+                check(row["control_restart_at_half_y_rel"] > MAMBA_CORE_RTOL,
+                      f"layer {li}: the restart control passed {row}")
+                rows[f"layer{li}"] = row
+        del calls
+        return {"rtol": MAMBA_CORE_RTOL, **rows}
+
+    def _hybrid_firing_gates(self, params, cfg, tokens) -> dict:
+        """Each firing of the shared block on its own input (the hidden
+        state it got in an xla forward): its attention core through
+        ``_attn_core_held``, the control on the first firing."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import rms_norm
+
+        with _captured(T, "_layer_apply", lambda a, kw, out: a[2]) as inputs:
+            T.forward(params, cfg.replace(attn_impl="xla"), tokens)
+        check(len(inputs) == HYBRID_LAUNCHES, f"{len(inputs)} firings")
+        worst, shared = {}, params.shared
+        with torch.inference_mode():
+            for i, x in enumerate(inputs):
+                _, ctrl = self._attn_core_held(
+                    shared.attn, cfg, rms_norm(x, shared.ln1), f"firing {i}",
+                    worst, control=i == 0)
+                if ctrl is not None:
+                    control = ctrl
+        del inputs
+        return {"worst": worst, "firings": HYBRID_LAUNCHES,
+                "control_late_rows_missing_first_partial": control,
+                "late_row_rtol": LATE_ROW_RTOL,
+                "attn_tol": ATTN_TOL["bfloat16"]}
+
+    def hybrid_forward(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import count_params
+
+        self._free()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(HYBRID_ARCH)
+        t0 = time.perf_counter()
+        self.hybrid_params = T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        params = self.hybrid_params
+        self.sync()
+        init_s = time.perf_counter() - t0
+        n_params = count_params(params)
+        check(n_params == HYBRID_PARAMS,
+              f"{HYBRID_ARCH}: {n_params} parameters")
+        tokens = torch.from_numpy(np.random.default_rng(15).integers(
+            0, cfg.vocab_size, (1, HYBRID_SEQ), dtype=np.int64)).cuda()
+        T.forward(params, cfg, tokens[:, :256])      # warm-up
+        self.sync()
+        self.reset_counts()
+        held = self._scoring(params, cfg, tokens, None, HYBRID_LAUNCHES,
+                             HYBRID_ARCH, gate_top1=False)
+        counts = self.counts()
+        self._add_sm90("hybrid_forward", counts)
+        firings = self._hybrid_firing_gates(params, cfg, tokens)
+        ssd = self._mamba_core_held(params, cfg, tokens)
+        shape_row = self._attn_shape_row(1, cfg, HYBRID_SEQ, 16, HYBRID_ARCH)
+        self.attn_row["at_zamba2_shape"] = shape_row
+        emit({"phase": "hybrid_forward", "card": self.card,
+              "arch": HYBRID_ARCH, "params": n_params, "dtype": cfg.dtype,
+              "tokens": list(tokens.shape), "init_s": init_s, **held,
+              "firing_gates": firings, "ssd_chunked_vs_scan": ssd,
+              "tri_attn_at_zamba2_shape": shape_row,
+              "main_path_launches": counts,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    def hybrid_generate(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+
+        params = self.hybrid_params
+        cfg = get_config(HYBRID_ARCH).replace(max_seq=GEN_PROMPT + GEN_NEW)
+        prompts = torch.from_numpy(np.random.default_rng(17).integers(
+            0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int64)).cuda()
+        got = self._generate_held(params, cfg, prompts, None, HYBRID_ARCH)
+        cache = got.pop("cache")
+        nt = torch.zeros((GEN_BATCH, 1), dtype=torch.int64, device="cuda")
+        decode_profile = self._host_profile(
+            lambda: T.decode_step(params, cfg, nt, cache))
+        # one k/v per firing of the shared block, each its own
+        shared = cache["shared"]
+        n_inv = cfg.n_layers // cfg.hybrid_attn_every
+        check(len(shared) == n_inv and cache["idx"] == GEN_PROMPT
+              and all(c["idx"] == GEN_PROMPT for c in shared),
+              f"{HYBRID_ARCH}: the shared block's caches")
+        check(not any(torch.equal(shared[i]["k"], shared[j]["k"])
+                      for i in range(n_inv) for j in range(i)),
+              f"{HYBRID_ARCH}: two firings share their k")
+        emit({"phase": "hybrid_generate", "card": self.card,
+              "arch": HYBRID_ARCH, **got,
+              "shared_block_caches": n_inv,
+              "decode_step_host_profile": decode_profile,
+              "mamba_state": list(cache["layers"][0]["state"].shape),
+              "conv_tail": list(cache["layers"][0]["conv_tail"].shape),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del self.hybrid_params, params, cache, shared
+        self._free()
+        emit({"phase": "hybrid_demo", **self._demo(
+            ["--arch", HYBRID_ARCH, "--batch", "4", "--prompt-len", "64",
+             "--max-new", "32"])})
+        self._free()
+
     def kernels_line(self) -> None:
         """One row per kernel.  Map rows: launches are paper_scale's main
         path (one mapped launch per domain at N = 5e8, one membership launch
@@ -3242,7 +4006,8 @@ class Smoke:
             "name": "tri_attn", "route": "cuda", "attn_route": "sm90",
             "source": f"{attn}tri_attn_sm90.cuh",
             "replaces": "src/repro/kernels/tri_attn/kernel.py:54",
-            "launches": self.launches["tri_attn_sm90"], **self.attn_row})
+            "launches": self.launches["tri_attn_sm90"],
+            "launches_by_path": self.sm90_paths, **self.attn_row})
         rows.append({
             "name": "tri_attn_simt", "route": "cuda", "attn_route": "simt",
             "source": f"{attn}tri_attn.cu",
@@ -3295,6 +4060,10 @@ def main() -> int:
     smoke.wkv()
     smoke.rwkv_forward()
     smoke.rwkv_generate()
+    smoke.moe_forward()
+    smoke.moe_generate()
+    smoke.hybrid_forward()
+    smoke.hybrid_generate()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -6,8 +6,9 @@ LM prefill/decode demo:
         --batch 4 --prompt-len 32 --max-new 32
 
 ``--arch`` takes a ported family's arch: the dense ones (yi-6b,
-llama3.2-3b, ...), llama-3.2-vision-11b (vlm), rwkv6-3b (ssm) and
-whisper-medium (audio).  Weights are random, from a ``torch.Generator``
+llama3.2-3b, ...), moonshot-v1-16b-a3b (moe), llama-3.2-vision-11b (vlm),
+rwkv6-3b (ssm), zamba2-1.2b (hybrid) and whisper-medium (audio); not
+deepseek-v2-236b (MLA attention).  Weights are random, from a ``torch.Generator``
 seeded 0 and made on ``--device`` (default ``cuda``; ``--device cpu`` for a
 machine without a card, with ``--smoke`` for the reduced config).  The vlm
 and audio archs get stub patch or frame embeddings (a seeded

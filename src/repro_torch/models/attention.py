@@ -28,7 +28,7 @@ NEG_INF = -1e30
 _Q_CHUNK = 256
 
 UNPORTED_MLA = ("MLA attention (deepseek-v2) is not ported yet: ROADMAP "
-                "queue 1 item 8 (other model families)")
+                "queue 1 item 8c (other model families: MLA)")
 UNPORTED_XLA_MAPPED = ("attn_impl='xla_mapped' (the dry-run's mapped XLA "
                        "attention) is not ported yet: ROADMAP queue 1 item 10 "
                        "(launch and analysis tooling)")

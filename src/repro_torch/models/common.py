@@ -20,6 +20,15 @@ def frozen_param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class SwiGLU(nn.Module):
+    """gate / up (d, d_ff), down (d_ff, d)."""
+
+    def __init__(self, gate, up, down):
+        super().__init__()
+        self.gate, self.up, self.down = (frozen_param(w)
+                                         for w in (gate, up, down))
+
+
 def dense_init(generator: torch.Generator, in_dim: int, out_dims,
                dtype: torch.dtype, scale: float | None = None,
                device=None) -> torch.Tensor:

@@ -3,14 +3,15 @@
 ``params_from_jax(tree, cfg, device)`` takes the reference's
 ``init_params`` tree with numpy leaves (``jax.tree.map(np.asarray, p)``;
 bfloat16 leaves may be ``ml_dtypes`` arrays) and returns a ``DenseLM``
-(family ``dense``), a ``VisionLM`` (``vlm``), an ``RWKVLM`` (``ssm``) or a
-``WhisperLM`` (``audio``).  The reference stacks every layer's weight on a
-leading ``layers`` axis (``wq`` (L, d, H, hd), ``tmix.wr`` (L, d, d), ...);
-vlm's on ``groups.self.*`` (G, cross_attn_every - 1, ...) and
-``groups.cross.*`` (G, ...); whisper's on ``enc_layers.*`` and
-``dec_layers.*`` (L, ...).  Each slice becomes one layer module.  Layouts
-are kept as they are, so the two packages compute the same products on the
-same numbers.
+(families ``dense`` and ``moe``), a ``VisionLM`` (``vlm``), an ``RWKVLM``
+(``ssm``), a ``HybridLM`` (``hybrid``) or a ``WhisperLM`` (``audio``).  The
+reference stacks every layer's weight on a leading ``layers`` axis (``wq``
+(L, d, H, hd), ``moe.gate`` (L, d, E, f), ``mamba.in_proj`` (L, d, ...),
+``tmix.wr`` (L, d, d), ...); vlm's on ``groups.self.*`` (G, cross_attn_every
+- 1, ...) and ``groups.cross.*`` (G, ...); whisper's on ``enc_layers.*`` and
+``dec_layers.*`` (L, ...); the hybrid family's ``shared`` block is not
+stacked.  Each slice becomes one layer module.  Layouts are kept as they
+are, so the two packages compute the same products on the same numbers.
 """
 from __future__ import annotations
 
@@ -18,7 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
+from repro_torch.models.common import SwiGLU
 from repro_torch.models import transformer as T
 
 
@@ -40,6 +44,8 @@ def params_from_jax(tree, cfg, device="cuda"):
         return _rwkv_from_jax(tree, cfg, t)
     if cfg.family == "audio":
         return _whisper_from_jax(tree, cfg, t)
+    if cfg.family == "hybrid":
+        return _hybrid_from_jax(tree, cfg, t)
     lm_head = None if cfg.tie_embeddings else t(tree["lm_head"])
     if cfg.family == "vlm":
         G = tree["groups"]
@@ -63,14 +69,34 @@ def _gqa(la, ix, t) -> attn.GQAAttention:
                              **norms)
 
 
+def _swiglu(m, ix, t) -> SwiGLU:
+    return SwiGLU(t(m["gate"][ix]), t(m["up"][ix]), t(m["down"][ix]))
+
+
 def _decoder_layer(L, ix, t, cross: bool = False):
-    """The layer at index ``ix`` of the stacked tree ``L``."""
-    lm = L["mlp"]
-    args = (t(L["ln1"][ix]), t(L["ln2"][ix]), _gqa(L["attn"], ix, t),
-            T.SwiGLU(t(lm["gate"][ix]), t(lm["up"][ix]), t(lm["down"][ix])))
+    """The layer at index ``ix`` of the stacked tree ``L`` (``ix = ()``: an
+    unstacked one, the hybrid family's shared block)."""
+    ln1, ln2, a = t(L["ln1"][ix]), t(L["ln2"][ix]), _gqa(L["attn"], ix, t)
+    if "moe" in L:
+        m = L["moe"]
+        shared = _swiglu(m["shared"], ix, t) if "shared" in m else None
+        return T.DecoderLayer(ln1, ln2, a, moe=moe_mod.MoE(
+            *(t(m[n][ix]) for n in ("router", "gate", "up", "down")),
+            shared))
     if cross:
-        return T.CrossLayer(*args, t(L["xattn_gate"][ix]))
-    return T.DecoderLayer(*args)
+        return T.CrossLayer(ln1, ln2, a, _swiglu(L["mlp"], ix, t),
+                            t(L["xattn_gate"][ix]))
+    return T.DecoderLayer(ln1, ln2, a, _swiglu(L["mlp"], ix, t))
+
+
+def _hybrid_from_jax(tree, cfg, t) -> T.HybridLM:
+    L = tree["layers"]
+    layers = [T.MambaLayer(t(L["ln"][i]), m2.Mamba2(
+        **{n: t(L["mamba"][n][i]) for n in m2.MAMBA2_NAMES}))
+        for i in range(cfg.n_layers)]
+    return T.HybridLM(cfg, t(tree["embed"]), t(tree["final_norm"]), layers,
+                      _decoder_layer(tree["shared"], (), t),
+                      t(tree["lm_head"]))
 
 
 def _whisper_from_jax(tree, cfg, t) -> T.WhisperLM:

@@ -1,25 +1,32 @@
-"""The ported model families: ``dense`` (GQA + SwiGLU MLP), ``vlm``
-(llama-3.2-vision: groups of ``cross_attn_every - 1`` self layers and one
-gated cross-attention layer over stub patch embeddings), ``ssm`` (the RWKV-6
-stack: time mix + channel mix) and ``audio`` (whisper: a bidirectional
-encoder over stub frame embeddings, a causal decoder with cross-attention).
+"""The model families: ``dense`` (GQA + SwiGLU MLP), ``moe`` (GQA + a
+sort-dispatch mixture of experts in place of the MLP, ``models/moe.py``),
+``vlm`` (llama-3.2-vision: groups of ``cross_attn_every - 1`` self layers
+and one gated cross-attention layer over stub patch embeddings), ``ssm``
+(the RWKV-6 stack: time mix + channel mix), ``hybrid`` (zamba2: a Mamba2
+backbone, ``models/mamba2.py``, and ONE shared attention + MLP block fired
+every ``hybrid_attn_every`` layers, with a KV cache per invocation) and
+``audio`` (whisper: a bidirectional encoder over stub frame embeddings, a
+causal decoder with cross-attention).
 
 The public API mirrors the reference's: ``init_params`` / ``forward``
-(teacher-forced logits) / ``init_cache`` / ``prefill`` / ``decode_step``.
-Parameters are a ``DenseLM``, ``VisionLM``, ``RWKVLM`` or ``WhisperLM``
-module whose layers are an ``nn.ModuleList`` walked by a loop (the reference
-scans stacked parameters); the weights keep the reference's layouts
-(``models/convert.py`` loads a reference tree).  Causal self-attention in a
-cache-less ``forward`` runs the tri_attn kernel under ``attn_impl``
-``pallas_*``; cross-attention and the whisper encoder's bidirectional
-attention are the plain ``_sdpa``, as in the reference.  ``extra`` (vision
-states or frames) is cast to the weights' dtype: torch's products do not
-promote a bf16 weight against fp32 states as jnp's do.  An RWKV layer runs
-the chunked WKV, and so the ``wkv`` kernel, when the sequence is a multiple
-of 64, and the step-by-step scan otherwise (decode), the reference's rule.
-Passes that ask for no gradient run under ``torch.inference_mode()``; there
-is no remat.  Other families raise ``NotImplementedError`` naming their
-ROADMAP item.
+(teacher-forced logits; ``with_aux`` adds the MoE load-balancing loss) /
+``init_cache`` / ``prefill`` / ``decode_step``.  Parameters are a
+``DenseLM`` (dense, moe), ``VisionLM``, ``RWKVLM``, ``HybridLM`` or
+``WhisperLM`` module whose layers are an ``nn.ModuleList`` walked by a loop
+(the reference scans stacked parameters); the weights keep the reference's
+layouts (``models/convert.py`` loads a reference tree).  Causal
+self-attention in a cache-less ``forward`` (the hybrid family's shared block
+included) runs the tri_attn kernel under ``attn_impl`` ``pallas_*``;
+cross-attention and the whisper encoder's bidirectional attention are the
+plain ``_sdpa``, as in the reference.  ``extra`` (vision states or frames)
+is cast to the weights' dtype: torch's products do not promote a bf16 weight
+against fp32 states as jnp's do.  An RWKV layer runs the chunked WKV, and so
+the ``wkv`` kernel, when the sequence is a multiple of 64, and the
+step-by-step scan otherwise (decode), the reference's rule; a Mamba2 layer
+takes its chunked SSD or its scan by the same rule.  Passes that ask for no
+gradient run under ``torch.inference_mode()``; there is no remat.  MLA
+attention (deepseek-v2) raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -29,31 +36,26 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.common import (
-    dense_init, embed_init, frozen_param, gelu_mlp, layer_norm, rms_norm,
-    swiglu,
+    SwiGLU, dense_init, embed_init, frozen_param, gelu_mlp, layer_norm,
+    rms_norm, swiglu,
 )
 
-PORTED_FAMILIES = ("dense", "vlm", "ssm", "audio")
-UNPORTED_FAMILIES = {
-    "moe": "ROADMAP queue 1 item 8 (other model families): MoE with MLA",
-    "hybrid": "ROADMAP queue 1 item 8 (other model families): Mamba2 / "
-              "zamba2",
-}
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 #: an RWKV layer takes the chunked WKV when the sequence is a multiple of
 #: this, and the scan otherwise (reference ``transformer.py:261``)
 RWKV_CHUNK = 64
 
 
 def require_ported(cfg) -> None:
-    """Raise NotImplementedError for what this port does not run yet."""
+    """Raise NotImplementedError for what this port does not run yet: MLA
+    attention (deepseek-v2, a ``moe`` config), ROADMAP queue 1 item 8c."""
     if cfg.family not in PORTED_FAMILIES:
-        where = UNPORTED_FAMILIES.get(cfg.family, "no ROADMAP item")
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet: "
-            f"{where}")
-    if cfg.family in ("dense", "vlm") and cfg.attention_type != "gqa":
+        raise ValueError(f"{cfg.arch_id}: unknown family {cfg.family!r}")
+    if cfg.family in ("dense", "moe", "vlm") and cfg.attention_type != "gqa":
         raise NotImplementedError(f"{cfg.arch_id}: {attn.UNPORTED_MLA}")
 
 
@@ -61,21 +63,19 @@ def _dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-class SwiGLU(nn.Module):
-    """gate / up (d, d_ff), down (d_ff, d)."""
-
-    def __init__(self, gate, up, down):
-        super().__init__()
-        self.gate, self.up, self.down = (frozen_param(w)
-                                         for w in (gate, up, down))
-
-
 class DecoderLayer(nn.Module):
-    def __init__(self, ln1, ln2, attn_p: attn.GQAAttention, mlp: SwiGLU):
+    """ln1, ln2 (d,), attention, and an MLP (``mlp``) or, in the moe
+    family, a mixture of experts (``moe``) in its place."""
+
+    def __init__(self, ln1, ln2, attn_p: attn.GQAAttention,
+                 mlp: SwiGLU | None = None, moe: moe_mod.MoE | None = None):
         super().__init__()
+        if (mlp is None) == (moe is None):
+            raise ValueError("a decoder layer takes an mlp or a moe")
         self.ln1, self.ln2 = frozen_param(ln1), frozen_param(ln2)
         self.attn = attn_p
         self.mlp = mlp
+        self.moe = moe
 
 
 class CrossLayer(DecoderLayer):
@@ -141,26 +141,46 @@ def _device(params) -> torch.device:
 
 
 def _layer_apply(p: DecoderLayer, cfg, x, *, positions=None, cache=None,
-                 cross_kv=None):
+                 cross_kv=None, with_aux: bool = False):
+    """Returns (x, new_cache), or (x, new_cache, moe aux) with with_aux."""
     h, new_cache = attn.gqa_apply(p.attn, cfg, rms_norm(x, p.ln1),
                                   positions=positions, cache=cache,
                                   cross_kv=cross_kv)
     if cross_kv is not None:
         h = h * torch.tanh(p.xattn_gate).to(h.dtype)
     x = x + h
-    x = x + swiglu(rms_norm(x, p.ln2), p.mlp.gate, p.mlp.up, p.mlp.down)
-    return x, new_cache
+    inner = rms_norm(x, p.ln2)
+    aux = None
+    if p.moe is not None:
+        out = moe_mod.moe_apply(p.moe, cfg, inner, with_aux=with_aux)
+        if with_aux:
+            out, aux = out
+        x = x + out
+    else:
+        x = x + swiglu(inner, p.mlp.gate, p.mlp.up, p.mlp.down)
+    if not with_aux:
+        return x, new_cache
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux
 
 
-def _decoder_stack(params: DenseLM, cfg, x, *, positions=None, caches=None):
-    """Loop over the layers; caches is a list of per-layer caches or None."""
+def _decoder_stack(params: DenseLM, cfg, x, *, positions=None, caches=None,
+                   with_aux: bool = False):
+    """Loop over the layers; caches is a list of per-layer caches or None.
+    with_aux also returns the summed MoE load-balancing loss."""
     new_caches = None if caches is None else []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params.layers):
-        x, c = _layer_apply(lp, cfg, x, positions=positions,
-                            cache=None if caches is None else caches[i])
+        out = _layer_apply(lp, cfg, x, positions=positions,
+                           cache=None if caches is None else caches[i],
+                           with_aux=with_aux)
+        x, c = out[0], out[1]
+        if with_aux:
+            aux = aux + out[2]
         if new_caches is not None:
             new_caches.append(c)
-    return x, new_caches
+    return (x, new_caches, aux) if with_aux else (x, new_caches)
 
 
 def _vlm_stack(params: VisionLM, cfg, x, *, positions=None, caches=None,
@@ -288,6 +308,84 @@ def _rwkv_stack(params: RWKVLM, cfg, x, caches=None):
         if new_caches is not None:
             new_caches.append(st)
     return x, new_caches
+
+
+# ===========================================================================
+# Zamba2 hybrid
+# ===========================================================================
+
+
+class MambaLayer(nn.Module):
+    """ln (d,) and a Mamba2 block."""
+
+    def __init__(self, ln, mamba: m2.Mamba2):
+        super().__init__()
+        self.ln = frozen_param(ln)
+        self.mamba = mamba
+
+
+class HybridLM(nn.Module):
+    """embed (V, d), final_norm (d,), lm_head (d, V), the Mamba2 layers and
+    ONE shared attention + MLP block (a ``DecoderLayer``: ln1, ln2, attn,
+    mlp) fired after every ``hybrid_attn_every``-th layer."""
+
+    def __init__(self, cfg, embed, final_norm, layers, shared: DecoderLayer,
+                 lm_head):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = frozen_param(embed)
+        self.final_norm = frozen_param(final_norm)
+        self.lm_head = frozen_param(lm_head)
+        self.layers = nn.ModuleList(layers)
+        self.shared = shared
+
+    def forward(self, tokens, positions=None):
+        return forward(self, self.cfg, tokens, positions=positions)
+
+
+def _hybrid_stack(params: HybridLM, cfg, x, *, positions=None, cache=None):
+    """Loop over the Mamba2 layers; after layer i with i % period == period
+    - 1 the shared block fires (invocation i // period).  ``cache``:
+    ``{"layers": [{"state", "conv_tail"}], "shared": [one GQA cache per
+    invocation], "idx"}`` or None; returns (x, new cache or None)."""
+    period = cfg.hybrid_attn_every
+    new = None if cache is None else {
+        "layers": [], "shared": list(cache["shared"]),
+        "idx": cache["idx"] + x.shape[1]}
+    for i, lp in enumerate(params.layers):
+        lc = None if cache is None else cache["layers"][i]
+        h, state, tail = m2.mamba2_apply(
+            lp.mamba, cfg, rms_norm(x, lp.ln),
+            state=None if lc is None else lc["state"],
+            conv_tail=None if lc is None else lc["conv_tail"])
+        x = x + h
+        if new is not None:
+            new["layers"].append({"state": state, "conv_tail": tail})
+        if i % period == period - 1:
+            inv = i // period
+            x, c = _layer_apply(params.shared, cfg, x, positions=positions,
+                                cache=None if new is None
+                                else new["shared"][inv])
+            if new is not None:
+                new["shared"][inv] = c
+    return x, new
+
+
+def _hybrid_cache(cfg, batch: int, max_seq: int, dtype, device) -> dict:
+    """fp32 Mamba states (B, H, P, N) and conv tails (B, W-1, d_inner + 2N)
+    per layer; one GQA cache per shared-block invocation, never int8 (the
+    reference keeps it unquantised under kv_cache_quant too)."""
+    h, n = cfg.mamba_heads, cfg.ssm_state
+    layers = [{"state": torch.zeros((batch, h, cfg.mamba_d_inner // h, n),
+                                    dtype=torch.float32, device=device),
+               "conv_tail": torch.zeros(
+                   (batch, cfg.mamba_conv_width - 1,
+                    cfg.mamba_d_inner + 2 * n), dtype=dtype, device=device)}
+              for _ in range(cfg.n_layers)]
+    shared_cfg = cfg.replace(kv_cache_quant=False)
+    shared = [attn.gqa_cache_init(shared_cfg, batch, max_seq, dtype, device)
+              for _ in range(cfg.n_layers // cfg.hybrid_attn_every)]
+    return {"layers": layers, "shared": shared, "idx": 0}
 
 
 # ===========================================================================
@@ -422,6 +520,9 @@ def _stack(params, cfg, x, *, positions=None, caches=None, extra=None):
     """The decoder-only families' layer stack."""
     if cfg.family == "ssm":
         return _rwkv_stack(params, cfg, x, caches=caches)
+    if cfg.family == "hybrid":
+        return _hybrid_stack(params, cfg, x, positions=positions,
+                             cache=caches)
     if cfg.family == "vlm":
         return _vlm_stack(params, cfg, x, positions=positions, caches=caches,
                           cross_states=extra)
@@ -434,19 +535,26 @@ def _stack(params, cfg, x, *, positions=None, caches=None, extra=None):
 
 
 def _dense_layer(generator, cfg, dtype, device, cross: bool = False):
+    """A decoder layer: its MLP is a MoE in the moe family (not in a cross
+    layer), as in the reference."""
     d = cfg.d_model
 
     def ones():
         return torch.ones(d, dtype=dtype, device=device)
 
-    args = (ones(), ones(), attn.gqa_init(generator, cfg, dtype, device),
-            SwiGLU(dense_init(generator, d, cfg.d_ff, dtype, device=device),
-                   dense_init(generator, d, cfg.d_ff, dtype, device=device),
-                   dense_init(generator, cfg.d_ff, d, dtype, device=device)))
+    ln1, ln2 = ones(), ones()
+    attn_p = attn.gqa_init(generator, cfg, dtype, device)
+    if cfg.family == "moe" and not cross:
+        return DecoderLayer(ln1, ln2, attn_p,
+                            moe=moe_mod.moe_init(generator, cfg, dtype,
+                                                 device))
+    mlp = SwiGLU(dense_init(generator, d, cfg.d_ff, dtype, device=device),
+                 dense_init(generator, d, cfg.d_ff, dtype, device=device),
+                 dense_init(generator, cfg.d_ff, d, dtype, device=device))
     if cross:
-        return CrossLayer(*args, torch.zeros((), dtype=torch.float32,
-                                             device=device))
-    return DecoderLayer(*args)
+        return CrossLayer(ln1, ln2, attn_p, mlp,
+                          torch.zeros((), dtype=torch.float32, device=device))
+    return DecoderLayer(ln1, ln2, attn_p, mlp)
 
 
 def _whisper_init(generator, cfg, dtype, device) -> WhisperLM:
@@ -480,7 +588,8 @@ def _whisper_init(generator, cfg, dtype, device) -> WhisperLM:
 
 
 def init_params(cfg, generator: torch.Generator | None = None,
-                device="cuda") -> DenseLM | VisionLM | RWKVLM | WhisperLM:
+                device="cuda"
+                ) -> DenseLM | VisionLM | RWKVLM | HybridLM | WhisperLM:
     """Random weights from ``generator`` (a fresh one seeded 0 if None),
     made on ``device``: the reference's distributions, not its numbers.
     A vlm cross layer's ``xattn_gate`` is 0, as in the reference."""
@@ -501,6 +610,12 @@ def init_params(cfg, generator: torch.Generator | None = None,
         layers = [_rwkv_layer_init(generator, cfg, dtype, device)
                   for _ in range(cfg.n_layers)]
         return RWKVLM(cfg, embed, final_norm, layers, lm_head)
+    if cfg.family == "hybrid":
+        layers = [MambaLayer(torch.ones(d, dtype=dtype, device=device),
+                             m2.mamba2_init(generator, cfg, dtype, device))
+                  for _ in range(cfg.n_layers)]
+        shared = _dense_layer(generator, cfg, dtype, device)
+        return HybridLM(cfg, embed, final_norm, layers, shared, lm_head)
     if cfg.family == "vlm":
         groups = [
             VisionGroup([_dense_layer(generator, cfg, dtype, device)
@@ -519,9 +634,10 @@ def forward(params, cfg, tokens, extra=None, positions=None,
     """Teacher-forced logits (B, S, padded_vocab) fp32.  ``extra``: the vlm
     family's vision states or the audio family's frames, (B, T, d).
 
-    with_aux=True returns (logits, moe_aux_loss) — aux is 0 for every
-    ported family."""
+    with_aux=True returns (logits, moe_aux_loss): the MoE layers' summed
+    load-balancing loss in the moe family, 0 for the others."""
     require_ported(cfg)
+    aux = None
     with _no_grad_unless_asked(params):
         tokens = _tokens(params, tokens)
         extra = _extra(params, extra)
@@ -533,22 +649,33 @@ def forward(params, cfg, tokens, extra=None, positions=None,
                                       positions=positions)
             out = _whisper_logits(params, cfg, x)
         else:
-            x, _ = _stack(params, cfg, x, positions=positions, extra=extra)
+            if with_aux and cfg.family == "moe":
+                x, _, aux = _decoder_stack(params, cfg, x,
+                                           positions=positions,
+                                           with_aux=True)
+            else:
+                x, _ = _stack(params, cfg, x, positions=positions,
+                              extra=extra)
             out = _logits(params, cfg, x)
-    if with_aux:
-        return out, torch.zeros((), dtype=torch.float32, device=out.device)
-    return out
+    if not with_aux:
+        return out
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=out.device)
+    return out, aux
 
 
 def init_cache(cfg, batch: int, max_seq: int, extra_len: int = 0,
                device="cuda"):
-    """Per-layer caches: GQA k/v of ``max_seq`` rows (dense; vlm: the self
-    layers of each group, ``{"self": [...]}``; audio: the decoder layers,
-    plus ``cross`` k/v (L, B, extra_len, Hk, hd) that prefill fills), or the
-    RWKV state (ssm: tmix_x, cmix_x (B, d) and wkv (B, h, hd, hd), fp32, of
-    no length)."""
+    """Per-layer caches: GQA k/v of ``max_seq`` rows (dense, moe; vlm: the
+    self layers of each group, ``{"self": [...]}``; audio: the decoder
+    layers, plus ``cross`` k/v (L, B, extra_len, Hk, hd) that prefill
+    fills), or the RWKV state (ssm: tmix_x, cmix_x (B, d) and wkv (B, h, hd,
+    hd), fp32, of no length); hybrid: ``_hybrid_cache``'s Mamba states and
+    conv tails, one GQA cache per shared-block invocation and ``idx``."""
     require_ported(cfg)
     dtype = _dtype(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_cache(cfg, batch, max_seq, dtype, device)
 
     def gqa(n):
         return [attn.gqa_cache_init(cfg, batch, max_seq, dtype, device)
@@ -594,12 +721,18 @@ def prefill(params, cfg, tokens, extra=None, cache=None):
                                           caches=cache["layers"], cross=cross)
             return _whisper_logits(params, cfg, x), {"layers": new_l,
                                                      "cross": cross}
+        if cfg.family == "hybrid":
+            x, new_c = _hybrid_stack(params, cfg, x, positions=positions,
+                                     cache=cache)
+            return _logits(params, cfg, x), new_c
         x, new_l = _stack(params, cfg, x, positions=positions,
                           caches=cache["layers"], extra=extra)
         return _logits(params, cfg, x), {"layers": new_l}
 
 
 def _cache_idx(cfg, cache) -> int:
+    if cfg.family == "hybrid":
+        return cache["idx"]
     if cfg.family == "vlm":
         return cache["layers"][0]["self"][0]["idx"]
     return cache["layers"][0]["idx"]
@@ -626,6 +759,10 @@ def decode_step(params, cfg, token, cache, extra=None):
                                           cross=cache["cross"])
             return _whisper_logits(params, cfg, x), {
                 "layers": new_l, "cross": cache["cross"]}
+        if cfg.family == "hybrid":
+            x, new_c = _hybrid_stack(params, cfg, x, positions=positions,
+                                     cache=cache)
+            return _logits(params, cfg, x), new_c
         x, new_l = _stack(params, cfg, x, positions=positions,
                           caches=cache["layers"],
                           extra=_extra(params, extra))

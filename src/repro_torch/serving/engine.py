@@ -3,7 +3,9 @@
 Static-shape batching: a batch of requests is padded to a common prompt
 length, prefilled in one pass, then decoded step by step with
 ``decode_step`` against a batch-major cache (fixed-``max_seq`` k/v for the
-dense, vlm and audio families, the fixed-size RWKV state for ``ssm``).
+dense, moe, vlm and audio families, the fixed-size RWKV state for ``ssm``;
+for ``hybrid`` the Mamba2 states and conv tails and the shared block's k/v
+per invocation).
 ``extra`` carries the vlm family's vision states or the audio family's
 frames: whisper's prefill projects every decoder layer's cross k/v once into
 the cache, and a vlm decode step projects them again from ``extra``, as in

@@ -1,7 +1,8 @@
 """Loss and the eval step over ``forward`` — the scoring entry point.
 
-Causal-LM cross entropy (fp32 logsumexp), z-loss and the MoE aux term (0
-for dense).  The optimizer, ``make_train_step``, microbatching and gradient
+Causal-LM cross entropy (fp32 logsumexp), z-loss and the MoE aux term
+(``forward(..., with_aux=True)``: the moe family's summed load-balancing
+loss, 0 for the other families).  The optimizer, ``make_train_step``, microbatching and gradient
 compression wait for the training slice (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations

@@ -54,7 +54,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.serving.engine", "repro_torch.launch.serve",
                  "repro_torch.train.train_step", "repro_torch.configs.yi_6b",
                  "repro_torch.kernels.wkv.kernel",
-                 "repro_torch.kernels.wkv.ops", "repro_torch.models.rwkv6"):
+                 "repro_torch.kernels.wkv.ops", "repro_torch.models.rwkv6",
+                 "repro_torch.models.moe", "repro_torch.models.mamba2"):
         assert name in seen["modules"]
     # the derive path
     for name in ("repro_torch.core.paper_tables",
