@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --index-widths   # device, build, index_widths only
     python3 chip_smoke.py --sharded-sweep  # device, build, the sweep's split
+    python3 chip_smoke.py --train-probe    # device, build, train_probe
 
 Phases, each printing one JSON line:
 
@@ -169,6 +170,37 @@ Phases, each printing one JSON line:
                (the scan): prefill and the first decode step against
                forward, one k/v cache per firing; then the LM demo (--arch
                zamba2-1.2b --prompt-len 64)
+  mla_forward  deepseek-v2-236b at full width cut to 6 of its 60 layers
+               (bf16, random weights from a seeded torch.Generator), tokens
+               (1, 4096): forward and lm_loss (no tri_attn launch: MLA runs
+               _sdpa), CE finite, the logits and each layer's capacity drops
+               printed; every layer on its own input: the MLA branch
+               against the layer in fp32 (a control with wuk and wuv
+               swapped), the MoE branch against fp32 experts (equal
+               routing, controls)
+  mla_generate engine.generate at batch 4, prompt 512 (the up-projected
+               path), 32 greedy tokens (the absorbed path); the MLA cache's
+               bytes per token and the decode's weight-read bound; every
+               layer's decode step on one cache against mla_absorb="never"
+               and against a cache-less pass over prompt + token, a
+               one-short RoPE control
+  train        llama3.2-3b at full width and depth (bf16, pallas_mapped,
+               remat "full"), batch 2 of 4096 in 2 microbatches, 4 steps of
+               SyntheticLM: 112 sm90 launches a step (forward and
+               recompute), step time, tokens/s, the optimizer's device time
+               beside its byte bound, the step's product bound; the first
+               step against the same step under xla from the same weights
+               and batch; tri_attn's dq, dk, dv bitwise equal to the plain
+               route's at (1, 24, 8, 4096, 128); tri_attn timed at the
+               training shape; at 4 layers on one set of weights, remat
+               "full" against "none", then microbatches 2 against 1 per
+               tensor and both against an fp32 witness (a plain-lookup
+               control); save, restore and a ResilientLoop with an
+               InjectedFailure at 1 layer, bitwise equal to an
+               uninterrupted run
+  train_entry  python -m repro_torch.launch.train --arch llama3.2-3b
+               --steps 3 --batch 2 --seq 4096 --microbatches 2 as a
+               subprocess: exit 0, its parameter count and final metrics
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
@@ -176,6 +208,10 @@ then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
                the host sends through a 32-bit path, its median time beside
                the same launch forced through the 64-bit path, the two
                outputs bit-identical
+  train_probe  (only with --train-probe) the train phase's 4 steps from
+               the same weights at full depth in bf16 at lr 3e-4, 3e-5 and
+               3e-6, and at 4 layers at 3e-4 in bf16 and in fp32 (xla):
+               loss and grad norm a step, printed, not gated
 
 Any failed check
 raises and the script exits non-zero; without a CUDA device it exits 2 and
@@ -431,6 +467,67 @@ HYBRID_LAUNCHES = 6            # the shared block fires after layers 5, ..., 35
 MAMBA_CORE_RTOL = 1e-4
 #: the Mamba2 layers held so: the first, and the first after a firing
 MAMBA_HELD_LAYERS = (0, 6)
+#: the MLA path: deepseek-v2-236b at full width (d_model 5120, 128 heads,
+#: q_lora 1536, kv_lora 512, q·k over 128 + 64, v 128; 160 experts top-6 of
+#: width 1536 and 2 shared), cut to MLA_LAYERS of its 60 layers: the whole
+#: model is 239,375,569,920 parameters (478.8 GB in bf16), the cut
+#: 24,881,280,000 (49.8 GB); tokens (1, 4096)
+MLA_ARCH = "deepseek-v2-236b"
+MLA_FULL_PARAMS = 239_375_569_920
+MLA_LAYERS = 6
+MLA_PARAMS = 24_881_280_000
+MLA_SEQ = 4096
+#: one MLA layer's attention branch in bf16 against another evaluation on
+#: the same input, max |Δ| over the other's max |value|: against the same
+#: layer with its weights upcast to fp32; the absorbed decode step against
+#: mla_absorb="never" on the same cache, and against a cache-less pass over
+#: prompt + token.  bf16 rounds each of the six products' outputs (2^-9 of
+#: an element), well under 1e-2 of the max; the gate is 3e-2, as
+#: MOE_LAYER_RTOL.  Controls must miss it: the fp32 layer with its k and v
+#: up-projections swapped (wuk for wuv: the same shapes), a decode step
+#: whose RoPE position is one short.
+MLA_LAYER_RTOL = 3e-2
+#: the training path: llama3.2-3b at full width and depth (28 layers,
+#: d_model 3072, GQA 24/8 of 128, d_ff 8192, tied vocab 128,256), bf16,
+#: attn_impl pallas_mapped, remat "full"; batch 2 of 4096 tokens in 2
+#: microbatches, 4 steps of SyntheticLM
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_PARAMS = 3_212_749_824
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES, TRAIN_STEPS = 2, 4096, 2, 4
+#: sm90 launches a step: one per layer per microbatch in the forward and
+#: one more in its remat recompute (the backward is the plain vjp)
+TRAIN_LAUNCHES_PER_STEP = 28 * 2 * 2
+#: the same step under xla from the same parameters and batch: loss within
+#: CE_RTOL, grad norm within TRAIN_GNORM_RTOL relative.  The two differ by
+#: the kernel's bf16 P (its logits sit at ~2e-2 of max against xla's, PERF.md
+#: §6); a gradient norm sums 3.2 G squares, so that noise averages down.
+TRAIN_GNORM_RTOL = 3e-2
+#: microbatches 2 against 1 on one batch: loss within 1e-4 relative (the
+#: mean over the same tokens, each row's forward the same math), grad norm
+#: within 1e-2 relative, and each gradient tensor within 1e-2 of its max
+#: |value| (bf16 rounds each half's gradient, 2^-9 of an element, against
+#: one rounding of the whole, and a product at another batch size may sum
+#: in another order: a few bf16 ulps of the largest element)
+MB_LOSS_RTOL, MB_GNORM_RTOL, MB_GRAD_RTOL = 1e-4, 1e-2, 1e-2
+#: both of those gradients against an fp32 witness (the same weights
+#: upcast, attn_impl xla, the whole batch): each tensor within 3e-2 of the
+#: witness's max |value| (bf16 activations through 4 layers and the loss,
+#: about 2^-8 an element, summed over 8192 tokens in fp32).  Control: the
+#: plain lookup's embedding gradient (bf16 accumulation over a token's
+#: repeats, about a tenth of the max at SyntheticLM's zipf) must miss it.
+WITNESS_GRAD_RTOL = 3e-2
+#: remat "full" against "none": the recompute runs the same kernels on the
+#: same inputs; loss within 1e-6 relative, gradients within 1e-3 of each
+#: tensor's max |value| (equality is printed)
+REMAT_LOSS_RTOL, REMAT_GRAD_RTOL = 1e-6, 1e-3
+#: depths of the training gates, both at full width: microbatches and
+#: remat at 4 layers on one set of weights; the checkpoint and the restart
+#: loop, which hold bitwise equality, at 1
+TRAIN_GATE_LAYERS, CKPT_LAYERS = 4, 1
+#: --train-probe: the main path's 4 steps at these learning rates (full
+#: depth, bf16), and at TRAIN_GATE_LAYERS layers in bf16 and in fp32 at the
+#: main path's 3e-4
+PROBE_LRS = (3e-4, 3e-5, 3e-6)
 
 
 def emit(obj: dict) -> None:
@@ -3471,11 +3568,9 @@ class Smoke:
         layer with its expert and shared weights upcast to fp32, on the
         same input: equal routing, output within MOE_LAYER_RTOL; on the
         first and last layer the fp32 layer without top-k renormalisation
-        and without its shared experts must miss that gate."""
-        import types
-
+        and without its shared experts must miss that gate
+        (``_moe_branch_held``)."""
         torch = self.torch
-        from repro_torch.models import moe
         from repro_torch.models import transformer as T
         from repro_torch.models.common import rms_norm
 
@@ -3492,49 +3587,58 @@ class Smoke:
                     control=li == 0)
                 if ctrl is not None:
                     controls["attn_late_rows_missing_first_partial"] = ctrl
-                inner = rms_norm(x + h_xla, lp.ln2)
-                m = lp.moe
-                with moe.record_routing() as r16:
-                    out16 = moe.moe_apply(m, cfg, inner)
-                up = types.SimpleNamespace
-                p32 = up(router=m.router, gate=m.gate.float(),
-                         up=m.up.float(), down=m.down.float(),
-                         shared=up(gate=m.shared.gate.float(),
-                                   up=m.shared.up.float(),
-                                   down=m.shared.down.float()))
-                with moe.record_routing() as r32:
-                    out32 = moe.moe_apply(p32, cfg, inner.float())
-                check(not bool(_routing_diff(r16[0], r32[0]).any())
-                      and torch.equal(r16[0]["slot"], r32[0]["slot"]),
-                      f"layer {li}: bf16 and fp32 MoE route differently on "
-                      f"the same router input")
-                rel = _rel(out16, out32)
-                check(rel <= MOE_LAYER_RTOL,
-                      f"layer {li}: MoE bf16 vs fp32 {rel}")
-                worst["moe_rel_vs_fp32"] = max(worst["moe_rel_vs_fp32"],
-                                               rel)
-                drops += _drops(r16)
-                if li in (0, last):
-                    un = moe.moe_apply(p32, cfg.replace(moe_renormalize=False),
-                                       inner.float())
-                    p32.shared = None
-                    no_shared = moe.moe_apply(p32, cfg, inner.float())
-                    controls[f"layer{li}_moe_not_renormalised"] = \
-                        _rel(out16, un)
-                    controls[f"layer{li}_moe_no_shared_experts"] = \
-                        _rel(out16, no_shared)
-                    del un, no_shared
-                del p32, out16, out32, inner, h_xla
-        for name, c in controls.items():
-            if not name.startswith("attn"):
-                check(c > MOE_LAYER_RTOL,
-                      f"the control {name} passed its gate ({c})")
+                drops += self._moe_branch_held(
+                    lp.moe, cfg, rms_norm(x + h_xla, lp.ln2), li,
+                    li in (0, last), worst, controls)
+                del h_xla
         del inputs
         return {"worst": worst, "controls": controls,
                 "late_row_rtol": LATE_ROW_RTOL,
                 "attn_tol": ATTN_TOL["bfloat16"],
                 "moe_layer_rtol": MOE_LAYER_RTOL, "drops_xla_forward": drops,
                 "layers": cfg.n_layers}
+
+    def _moe_branch_held(self, m, cfg, inner, li, with_controls, worst,
+                         controls) -> int:
+        """One layer's MoE branch in bf16 on its normed input ``inner``
+        against the same branch with its expert and shared weights upcast
+        to fp32: equal routing, output within MOE_LAYER_RTOL (the worst into
+        ``worst``).  ``with_controls``: the fp32 branch without top-k
+        renormalisation and without its shared experts must miss that gate
+        (into ``controls``).  Returns the bf16 branch's drops."""
+        import types
+
+        torch = self.torch
+        from repro_torch.models import moe
+
+        with moe.record_routing() as r16:
+            out16 = moe.moe_apply(m, cfg, inner)
+        up = types.SimpleNamespace
+        p32 = up(router=m.router, gate=m.gate.float(), up=m.up.float(),
+                 down=m.down.float(),
+                 shared=up(gate=m.shared.gate.float(),
+                           up=m.shared.up.float(),
+                           down=m.shared.down.float()))
+        with moe.record_routing() as r32:
+            out32 = moe.moe_apply(p32, cfg, inner.float())
+        check(not bool(_routing_diff(r16[0], r32[0]).any())
+              and torch.equal(r16[0]["slot"], r32[0]["slot"]),
+              f"layer {li}: bf16 and fp32 MoE route differently on the same "
+              f"router input")
+        rel = _rel(out16, out32)
+        check(rel <= MOE_LAYER_RTOL, f"layer {li}: MoE bf16 vs fp32 {rel}")
+        worst["moe_rel_vs_fp32"] = max(worst["moe_rel_vs_fp32"], rel)
+        if with_controls:
+            un = moe.moe_apply(p32, cfg.replace(moe_renormalize=False),
+                               inner.float())
+            p32.shared = None
+            no_shared = moe.moe_apply(p32, cfg, inner.float())
+            for name, c in (("moe_not_renormalised", _rel(out16, un)),
+                            ("moe_no_shared_experts", _rel(out16, no_shared))):
+                controls[f"layer{li}_{name}"] = c
+                check(c > MOE_LAYER_RTOL,
+                      f"the control layer{li}_{name} passed its gate ({c})")
+        return _drops(r16)
 
     def _host_profile(self, fn) -> dict:
         """Host side of one ``fn()`` under torch.profiler (CPU activity):
@@ -3980,6 +4084,809 @@ class Smoke:
              "--max-new", "32"])})
         self._free()
 
+    # -- MLA (deepseek-v2) ---------------------------------------------------
+    def _mla_layer_held(self, a, cfg, n1, li, worst, controls):
+        """One MLA layer's attention on its own normed input ``n1`` in bf16
+        against the same layer with its weights upcast to fp32, within
+        MLA_LAYER_RTOL; on layer 0 the fp32 layer with its k and v
+        up-projections swapped must miss that gate.  Returns the bf16
+        branch's output."""
+        import types
+
+        from repro_torch.models import attention as attn
+
+        out16 = attn.mla_apply(a, cfg, n1)[0]
+        a32 = types.SimpleNamespace(**{n: getattr(a, n).float()
+                                       for n in attn.MLA_NAMES})
+        rel = _rel(out16, attn.mla_apply(a32, cfg, n1.float())[0])
+        check(rel <= MLA_LAYER_RTOL, f"layer {li}: MLA bf16 vs fp32 {rel}")
+        worst["mla_rel_vs_fp32"] = max(worst["mla_rel_vs_fp32"], rel)
+        if li == 0:
+            a32.wuk, a32.wuv = a32.wuv, a32.wuk
+            c = _rel(out16, attn.mla_apply(a32, cfg, n1.float())[0])
+            controls["layer0_mla_wuk_wuv_swapped"] = c
+            check(c > MLA_LAYER_RTOL, f"the control layer0_mla_wuk_wuv_"
+                  f"swapped passed its gate ({c})")
+        del a32
+        return out16
+
+    def mla_forward(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import count_params, rms_norm
+        from repro_torch.train.train_step import lm_loss
+
+        self._free()
+        torch.cuda.reset_peak_memory_stats()
+        t_phase = time.perf_counter()
+        full = get_config(MLA_ARCH)
+        cfg = full.replace(n_layers=MLA_LAYERS)
+        t0 = time.perf_counter()
+        self.mla_params = T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        params = self.mla_params
+        self.sync()
+        init_s = time.perf_counter() - t0
+        n_params = count_params(params)
+        check(n_params == MLA_PARAMS, f"{MLA_ARCH} cut: {n_params} parameters")
+        per_layer = count_params(params.layers[0])
+        n_full = n_params + (full.n_layers - MLA_LAYERS) * per_layer
+        check(n_full == MLA_FULL_PARAMS, f"{MLA_ARCH}: {n_full} parameters")
+        tokens = torch.from_numpy(np.random.default_rng(18).integers(
+            0, cfg.vocab_size, (1, MLA_SEQ), dtype=np.int64)).cuda()
+        T.forward(params, cfg, tokens[:, :256])      # warm-up
+        self.sync()
+        self.reset_counts()
+        fwd_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with moe.record_routing() as rec:
+                logits = T.forward(params, cfg, tokens)
+                self.sync()
+            fwd_s.append(time.perf_counter() - t0)
+        check(logits.shape == (1, MLA_SEQ, cfg.padded_vocab)
+              and logits.dtype == torch.float32, f"{MLA_ARCH}: logits shape")
+        check(bool(torch.isfinite(logits).all()),
+              f"{MLA_ARCH}: logits not finite")
+        check(self.AK.ATTN_LAUNCHES == 0, f"{MLA_ARCH}: MLA reached tri_attn")
+        shown = {"max_abs": float(logits.abs().max()),
+                 "mean": float(logits.mean()), "std": float(logits.std()),
+                 "argmax_first8": logits[0, :8].argmax(-1).tolist()}
+        del logits
+        t0 = time.perf_counter()
+        loss, metrics = lm_loss(params, cfg, {"tokens": tokens,
+                                              "labels": tokens.roll(-1, 1)})
+        ce, aux = float(metrics["ce"]), float(metrics["moe_aux"])
+        loss_s = time.perf_counter() - t0
+        check(math.isfinite(ce) and math.isfinite(float(loss)),
+              f"{MLA_ARCH}: CE {ce}")
+        peak_fwd = torch.cuda.max_memory_allocated() / 1e9
+        # every layer on its own input (the hidden state entering it)
+        t0 = time.perf_counter()
+        with _captured(T, "_layer_apply", lambda a, kw, out: a[2]) as inputs:
+            T.forward(params, cfg, tokens)
+        check(len(inputs) == MLA_LAYERS, f"{len(inputs)} layer inputs")
+        worst = {"mla_rel_vs_fp32": 0.0, "moe_rel_vs_fp32": 0.0}
+        controls, drops = {}, 0
+        with torch.inference_mode():
+            for li, (lp, x) in enumerate(zip(params.layers, inputs)):
+                h = self._mla_layer_held(lp.attn, cfg, rms_norm(x, lp.ln1),
+                                         li, worst, controls)
+                drops += self._moe_branch_held(
+                    lp.moe, cfg, rms_norm(x + h, lp.ln2), li,
+                    li in (0, MLA_LAYERS - 1), worst, controls)
+                del h
+        del inputs
+        layers = {"worst": worst, "controls": controls,
+                  "mla_layer_rtol": MLA_LAYER_RTOL,
+                  "moe_layer_rtol": MOE_LAYER_RTOL, "drops": drops,
+                  "seconds": time.perf_counter() - t0}
+        emit({"phase": "mla_forward", "card": self.card, "arch": MLA_ARCH,
+              "full_params": n_full, "layers": f"{MLA_LAYERS} of "
+              f"{full.n_layers}", "params": n_params, "dtype": cfg.dtype,
+              "tokens": list(tokens.shape), "init_s": init_s,
+              "forward_s": fwd_s, "lm_loss_s": loss_s, "loss": float(loss),
+              "ce": ce, "moe_aux": aux, "logits": shown,
+              "drops_by_layer": [_drops([r]) for r in rec],
+              "assignments_per_layer": MLA_SEQ * cfg.moe_top_k,
+              "tri_attn_launches": self.AK.ATTN_LAUNCHES,
+              "layer_gates": layers, "peak_gb_forward": peak_fwd,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "phase_s": time.perf_counter() - t_phase})
+
+    def mla_generate(self) -> None:
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import attention as attn
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import rms_norm
+        from repro_torch.serving.engine import generate
+
+        params = self.mla_params
+        t_phase = time.perf_counter()
+        cfg = get_config(MLA_ARCH).replace(n_layers=MLA_LAYERS,
+                                           max_seq=GEN_PROMPT + GEN_NEW)
+        prompts = torch.from_numpy(np.random.default_rng(19).integers(
+            0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT), dtype=np.int64)).cuda()
+        b, s, n_l = GEN_BATCH, GEN_PROMPT, cfg.n_layers
+        self.reset_counts()
+        with moe.record_routing() as rec:
+            t0 = time.perf_counter()
+            res = generate(params, cfg, prompts, GEN_NEW)
+            self.sync()
+            gen_s = time.perf_counter() - t0
+        check(res.steps == GEN_NEW and res.tokens.shape == (b, s + GEN_NEW),
+              f"{MLA_ARCH}: generate's shape")
+        check(bool((res.tokens[:, :s] == prompts).all()),
+              f"{MLA_ARCH}: generate changed the prompt")
+        check(len(rec) == n_l * (1 + GEN_NEW), f"{len(rec)} MoE calls")
+        gen_drops = {"prefill": _drops(rec[:n_l]),
+                     "decode_steps": _drops(rec[n_l:])}
+        del rec
+        t0 = time.perf_counter()
+        pre, cache = T.prefill(params, cfg, prompts)
+        self.sync()
+        prefill_s = time.perf_counter() - t0
+        nt = pre[:, -1:, :cfg.vocab_size].argmax(-1)
+        check(torch.equal(nt, res.tokens[:, s:s + 1]),
+              f"{MLA_ARCH}: a second prefill's first token is not generate's")
+        del pre
+        lc0 = cache["layers"][0]
+        check(set(lc0) == {"ckv", "krope", "idx"} and lc0["idx"] == s
+              and lc0["ckv"].shape == (b, cfg.max_seq, cfg.kv_lora_rank)
+              and lc0["ckv"].dtype == torch.bfloat16,
+              f"{MLA_ARCH}: the MLA cache {[(k, getattr(v, 'shape', v)) for k, v in lc0.items()]}")
+        per_layer = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+        gqa_layer = 2 * cfg.n_heads * cfg.head_dim * 2
+        decode_profile = self._host_profile(
+            lambda: T.decode_step(params, cfg, nt, cache))
+        # per layer on one cache: the prefill's layer inputs, then the
+        # decode step's layer inputs and attention outputs (absorbed)
+        with _captured(T, "_layer_apply", lambda a, kw, out: a[2]) as xs:
+            _, cache = T.prefill(params, cfg, prompts)
+        with _captured(T, "_layer_apply", lambda a, kw, out: a[2]) as ys, \
+                _captured(attn, "mla_apply", lambda a, kw, out: out[0]) as hs:
+            dec, _ = T.decode_step(params, cfg, nt, cache)
+        check(len(xs) == len(ys) == len(hs) == n_l, "captured layers")
+        check(bool(torch.isfinite(dec).all()), f"{MLA_ARCH}: decode logits")
+        pos = torch.full((b, 1), s, dtype=torch.int64, device="cuda")
+        never = cfg.replace(mla_absorb="never")
+        worst = {"absorbed_vs_never": 0.0, "absorbed_vs_cache_less": 0.0,
+                 "never_vs_cache_less": 0.0}
+        with torch.inference_mode():
+            for li, lp in enumerate(params.layers):
+                y = rms_norm(ys[li], lp.ln1)
+                h_never = attn.mla_apply(lp.attn, never, y, positions=pos,
+                                         cache=cache["layers"][li])[0]
+                xy = rms_norm(torch.cat([xs[li], ys[li]], dim=1), lp.ln1)
+                h_full = attn.mla_apply(lp.attn, cfg, xy)[0][:, -1:]
+                for name, got, want in (
+                        ("absorbed_vs_never", hs[li], h_never),
+                        ("absorbed_vs_cache_less", hs[li], h_full),
+                        ("never_vs_cache_less", h_never, h_full)):
+                    worst[name] = max(worst[name], _rel(got, want))
+                if li == 0:
+                    keep_full0 = h_full
+            short = attn.mla_apply(params.layers[0].attn, cfg,
+                                   rms_norm(ys[0], params.layers[0].ln1),
+                                   positions=pos - 1,
+                                   cache=cache["layers"][0])[0]
+            control = _rel(short, keep_full0)
+        for name, w in worst.items():
+            check(w <= MLA_LAYER_RTOL, f"{MLA_ARCH} decode {name}: {w}")
+        check(control > MLA_LAYER_RTOL, f"the one-short RoPE control passed "
+              f"the decode gate ({control})")
+        del xs, ys, hs, dec, cache
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in params.parameters())
+        launches = self.AK.ATTN_LAUNCHES
+        check(launches == 0, f"{MLA_ARCH}: {launches} tri_attn launches")
+        emit({"phase": "mla_generate", "card": self.card, "arch": MLA_ARCH,
+              "layers": n_l, "batch": b, "prompt": s, "new": GEN_NEW,
+              "max_seq": cfg.max_seq, "generate_s": gen_s,
+              "prefill_s": prefill_s,
+              "decode_ms_per_step": (gen_s - prefill_s) / GEN_NEW * 1e3,
+              "tokens_per_s": b * GEN_NEW / gen_s,
+              "decode_weight_read_bound_ms":
+                  weight_bytes / HBM_BYTES_PER_S * 1e3,
+              "weight_bytes": weight_bytes,
+              "cache_bytes_per_token": {
+                  "per_layer": per_layer, "these_layers": per_layer * n_l,
+                  "all_60_layers": per_layer * 60,
+                  "gqa_128_heads_per_layer": gqa_layer},
+              "generate_drops": gen_drops, "layer_gates": {
+                  "worst": worst, "rtol": MLA_LAYER_RTOL,
+                  "control_rope_one_short": control},
+              "decode_step_host_profile": decode_profile,
+              "tri_attn_launches": launches,
+              "sample": res.tokens[0, s:s + 8].tolist(),
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "phase_s": time.perf_counter() - t_phase})
+        del self.mla_params, params
+        self._free()
+
+    # -- training (llama3.2-3b) ----------------------------------------------
+    def _train_cfg(self, n_layers: int | None = None):
+        from repro_torch.configs import get_config
+
+        cfg = get_config(TRAIN_ARCH).replace(attn_impl="pallas_mapped",
+                                             max_seq=TRAIN_SEQ)
+        return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+
+    def _train_params(self, cfg, seed: int = 0):
+        from repro_torch.models import transformer as T
+
+        return T.init_params(
+            cfg, self.torch.Generator(device="cuda").manual_seed(seed), "cuda")
+
+    def _train_batch(self, cfg, step: int, batch: int = TRAIN_BATCH) -> dict:
+        from repro_torch.train.data import DataConfig, SyntheticLM
+
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ, global_batch=batch))
+        return {k: self.torch.from_numpy(v).cuda()
+                for k, v in data.batch_at(step).items()}
+
+    @staticmethod
+    def _train_tcfg(microbatches: int = TRAIN_MICROBATCHES, lr: float = 3e-4):
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train.train_step import TrainConfig
+
+        return TrainConfig(optimizer=opt.OptimizerConfig(
+            lr=lr, warmup_steps=2, total_steps=TRAIN_STEPS),
+            microbatches=microbatches)
+
+    def _train_bounds(self, cfg, params) -> dict:
+        """The step's product bound, counted from the code: the layers'
+        weight products (bf16; forward, its remat recompute, and dX, dW in
+        the backward) and the kernel's causal forward (forward and
+        recompute) at 989 TFLOP/s; the tied head's product (fp32 in
+        ``_logits``; forward, dX, dW) and the plain attention backward
+        (fp32 over the whole S x S: QK^T and PV again, then four products)
+        at 67 TFLOP/s, as the code runs them, one after another."""
+        n_tok = TRAIN_BATCH * TRAIN_SEQ
+        b_mb = TRAIN_BATCH // TRAIN_MICROBATCHES
+        s, h, d = TRAIN_SEQ, cfg.n_heads, cfg.head_dim
+        l_ = cfg.n_layers
+        p_layer = sum(p.numel() for p in params.layers[0].parameters()
+                      if p.ndim >= 2)
+        passes = TRAIN_MICROBATCHES * l_ * b_mb * h
+        bf16 = {"layer_products": 2 * n_tok * l_ * p_layer * 4,
+                "attention_forward_and_recompute":
+                    passes * 2 * 4 * d * (s * (s + 1) // 2)}
+        fp32 = {"head": 2 * n_tok * cfg.d_model * cfg.padded_vocab * 3,
+                "attention_backward_plain": passes * 12 * s * s * d}
+        t_bf16 = sum(bf16.values()) / BF16_FLOP_PER_S
+        t_fp32 = sum(fp32.values()) / FP32_FLOP_PER_S
+        return {"bf16_flop": bf16, "fp32_flop": fp32, "bf16_s": t_bf16,
+                "fp32_s": t_fp32, "product_bound_s": t_bf16 + t_fp32}
+
+    @contextlib.contextmanager
+    def _timed_optimizer(self, keep_grads: bool = False):
+        """Within the block each ``optimizer.apply_updates`` call is timed
+        on the device (CUDA events around it, read after the step's sync)
+        and, with ``keep_grads``, its gradient dict kept; yields (events,
+        grads)."""
+        from repro_torch.train import optimizer as opt
+
+        real, events, grads = opt.apply_updates, [], []
+
+        def timed(model, g, state, cfg):
+            a = self.torch.cuda.Event(enable_timing=True)
+            b = self.torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real(model, g, state, cfg)
+            b.record()
+            events.append((a, b))
+            if keep_grads:
+                grads.append(g)
+            return out
+
+        opt.apply_updates = timed
+        try:
+            yield events, grads
+        finally:
+            opt.apply_updates = real
+
+    def _device_profile(self, fn) -> dict:
+        """One ``fn()`` under torch.profiler with CUDA activity: the device
+        time of every kernel summed, by class (``ta_sm90`` the tri_attn
+        kernels; gemm / gemv the library's products; the rest), the
+        kernels taking the most, and the device's idle share of the
+        profiled wall time (the profiler's host cost included)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.self_device_time_total]
+        classes = {"tri_attn": 0.0, "gemm": 0.0, "other": 0.0}
+        for e in ev:
+            name = e.key.lower()
+            kind = ("tri_attn" if "ta_sm90" in name else
+                    "gemm" if re.search(r"gemm|gemv|xmma|cutlass", name)
+                    else "other")
+            classes[kind] += e.self_device_time_total / 1e3
+        device = sum(classes.values())
+        top = sorted(ev, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:10]
+        return {"wall_ms": wall, "device_ms": device,
+                "idle_share": 1 - device / wall if device else None,
+                "device_ms_by_class": classes,
+                "top_kernels": [[e.key[:80], e.count,
+                                 e.self_device_time_total / 1e3]
+                                for e in top]}
+
+    def _grads_rel(self, a: dict, b: dict) -> float:
+        """max over tensors of max |a - b| / max |b| (fp32)."""
+        return max(float((a[n].float() - b[n].float()).abs().max())
+                   / max(float(b[n].float().abs().max()), 1e-30) for n in b)
+
+    def _train_main(self, cfg) -> dict:
+        """The main path: TRAIN_STEPS steps from seed-0 weights, preceded by
+        the same first step under xla from the same weights and batch."""
+        torch, AK = self.torch, self.AK
+        from repro_torch.models.common import count_params
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train.train_step import make_train_step
+
+        t0 = time.perf_counter()
+        params = self._train_params(cfg)
+        self.sync()
+        init_s = time.perf_counter() - t0
+        n_params = count_params(params)
+        check(n_params == TRAIN_PARAMS, f"{TRAIN_ARCH}: {n_params} parameters")
+        batches = [self._train_batch(cfg, i) for i in range(TRAIN_STEPS)]
+        tcfg = self._train_tcfg()
+        # the same first step under xla, then the weights put back
+        host = {n: p.detach().to("cpu", copy=True)
+                for n, p in params.named_parameters()}
+        state = opt.init_state(params)
+        n0 = AK.ATTN_LAUNCHES
+        t0 = time.perf_counter()
+        xm = make_train_step(cfg.replace(attn_impl="xla"), tcfg)(
+            params, state, batches[0])[2]
+        self.sync()
+        xla_s = time.perf_counter() - t0
+        check(AK.ATTN_LAUNCHES == n0, "the xla step launched tri_attn")
+        xm = {k: float(v) for k, v in xm.items()}
+        del state
+        with torch.no_grad():
+            for n, p in params.named_parameters():
+                p.copy_(host[n])
+        del host
+        self._free()
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(cfg, tcfg)
+        state = opt.init_state(params)
+        rows, per_step = [], []
+        with self._timed_optimizer() as (events, _):
+            self.reset_counts()
+            for i in range(TRAIN_STEPS):
+                n1 = AK.ATTN_SM90_LAUNCHES
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batches[i])
+                self.sync()
+                rows.append({"step_s": time.perf_counter() - t0,
+                             **{k: float(v) for k, v in m.items()}})
+                per_step.append(AK.ATTN_SM90_LAUNCHES - n1)
+            counts = self.counts()
+        self._add_sm90("train", counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        opt_ms = [a.elapsed_time(b) for a, b in events]
+        check(per_step == [TRAIN_LAUNCHES_PER_STEP] * TRAIN_STEPS
+              and counts["tri_attn"] == counts["tri_attn_sm90"],
+              f"{TRAIN_ARCH}: sm90 launches per step {per_step} (all "
+              f"{counts}), want {TRAIN_LAUNCHES_PER_STEP}")
+        check(all(math.isfinite(r[k]) for r in rows for k in r),
+              f"{TRAIN_ARCH}: a metric is not finite: {rows}")
+        check(int(state["step"]) == TRAIN_STEPS, "the optimizer's step")
+        k0 = rows[0]
+        vs_xla = {"loss_rel": abs(k0["loss"] - xm["loss"]) / abs(xm["loss"]),
+                  "ce_rel": abs(k0["ce"] - xm["ce"]) / abs(xm["ce"]),
+                  "grad_norm_rel": abs(k0["grad_norm"] - xm["grad_norm"])
+                  / xm["grad_norm"], "xla": xm, "xla_step_s": xla_s,
+                  "loss_rtol": CE_RTOL, "grad_norm_rtol": TRAIN_GNORM_RTOL}
+        check(vs_xla["loss_rel"] <= CE_RTOL and vs_xla["ce_rel"] <= CE_RTOL,
+              f"{TRAIN_ARCH}: step loss kernel vs xla {vs_xla}")
+        check(vs_xla["grad_norm_rel"] <= TRAIN_GNORM_RTOL,
+              f"{TRAIN_ARCH}: grad norm kernel vs xla {vs_xla}")
+        check(k0["lr"] == xm["lr"], "lr kernel vs xla")
+        profile = self._device_profile(
+            lambda: step(params, state, batches[0]))
+        opt_bytes = sum(p.numel() * (2 * p.element_size() + 4 + 16)
+                        for p in params.parameters())
+        step_s = statistics.median(r["step_s"] for r in rows[1:])
+        bounds = self._train_bounds(cfg, params)
+        del params, state, batches, events
+        self._free()
+        return {"params": n_params, "init_s": init_s, "steps": rows,
+                "step_s_median_after_first": step_s,
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+                "sm90_launches_per_step": per_step, "main_path": counts,
+                "peak_gb": peak, "optimizer_ms": opt_ms,
+                "optimizer_bytes": opt_bytes,
+                "optimizer_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
+                "step_bound": bounds, "kernel_vs_xla_first_step": vs_xla,
+                "step_device_profile": profile}
+
+    def _train_attention_grads(self) -> dict:
+        """tri_attn's gradient at the training shape: the kernel's
+        autograd node runs the plain vjp on its saved q, k, v, so dq, dk
+        and dv equal the plain route's bit for bit; the plain vjp's time
+        (its forward again and four products over S x S in fp32)."""
+        torch = self.torch
+        from repro_torch.kernels.tri_attn.ops import causal_attention
+        from repro_torch.kernels.tri_attn.ref import causal_attention_ref
+
+        cfg = self._train_cfg()
+        h, hk, d, g_ = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+            cfg.n_heads // cfg.n_kv_heads
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        q, k, v = (t.requires_grad_() for t in self._attn_inputs(
+            1, h, hk, TRAIN_SEQ, d, torch.bfloat16, gen))
+        g = torch.randn((1, h, TRAIN_SEQ, d), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        n0 = self.AK.ATTN_SM90_LAUNCHES
+        o = causal_attention(q, k, v, cfg.attn_block, cfg.attn_block,
+                             "mapped")
+        check(self.AK.ATTN_SM90_LAUNCHES == n0 + 1, "one sm90 launch")
+        got = torch.autograd.grad(o, (q, k, v), g)
+
+        def plain():
+            ref = causal_attention_ref(q, k.repeat_interleave(g_, 1),
+                                       v.repeat_interleave(g_, 1))
+            return torch.autograd.grad(ref, (q, k, v), g)
+
+        want = plain()
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        check(all(same), f"tri_attn's dq, dk, dv differ from the plain "
+              f"route's: {same}")
+        return {"shape": {"B": 1, "H": h, "Hk": hk, "S": TRAIN_SEQ, "D": d,
+                          "dtype": "bfloat16"},
+                "bitwise_equal_dq_dk_dv": same,
+                "plain_forward_and_backward_ms": self.time_ms(plain, reps=3),
+                "plain_backward_flop": 12 * h * TRAIN_SEQ ** 2 * d}
+
+    def _per_tensor_rel(self, a: dict, b: dict) -> dict:
+        """{name: max |a - b| / max |b|} (fp32)."""
+        return {n: float((a[n].float() - b[n].float()).abs().max())
+                / max(float(b[n].float().abs().max()), 1e-30) for n in b}
+
+    def _train_microbatches(self, params, cfg) -> dict:
+        """``microbatches`` 2 against 1 on one batch from ``params``, and
+        both against an fp32 witness: the same weights upcast to fp32
+        through attn_impl xla (no kernel), the whole batch at once.  Gates:
+        loss and grad norm of 1 against 2 (MB_LOSS_RTOL, MB_GNORM_RTOL); per
+        tensor, the gradient each step hands the optimizer against the
+        other's (MB_GRAD_RTOL) and against the witness's
+        (WITNESS_GRAD_RTOL), each over its tensor's max |value|; the
+        2-microbatch gradient exactly the fp32 mean of the halves' own.
+        Control: the embedding gradient of the plain lookup
+        (``table[tokens]``, whose backward adds a token's repeats in bf16)
+        must miss the witness gate.  ``params`` end updated."""
+        import copy
+
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train.train_step import lm_loss, make_train_step
+
+        named = dict(params.named_parameters())
+        batch = self._train_batch(cfg, 0)
+        wit = copy.deepcopy(params).float()
+        wnamed = dict(wit.named_parameters())
+        loss, _ = lm_loss(wit, cfg.replace(dtype="float32", attn_impl="xla"),
+                          batch)
+        witness = dict(zip(wnamed, torch.autograd.grad(
+            loss, list(wnamed.values()))))
+        witness_loss = float(loss.detach())
+        del wit, wnamed, loss
+        self._free()
+        rows = TRAIN_BATCH // TRAIN_MICROBATCHES
+        halves = []
+        for i in range(TRAIN_MICROBATCHES):
+            loss, _ = lm_loss(params, cfg, {k: v[i * rows:(i + 1) * rows]
+                                            for k, v in batch.items()})
+            halves.append(torch.autograd.grad(loss, list(named.values())))
+        mean = {n: (a.float() + b.float()) * 0.5
+                for n, a, b in zip(named, *halves)}
+        del halves, loss
+        real = T._embed
+        T._embed = lambda p, c, t: p.embed[t]
+        try:
+            loss, _ = lm_loss(params, cfg, batch)
+            plain = torch.autograd.grad(loss, [params.embed])[0]
+        finally:
+            T._embed = real
+        control = self._per_tensor_rel({"embed": plain},
+                                       {"embed": witness["embed"]})["embed"]
+        del plain, loss
+        host = {n: p.detach().to("cpu", copy=True) for n, p in named.items()}
+        out = {}
+        for n in (1, 2):
+            with torch.no_grad():
+                for name, p in named.items():
+                    p.copy_(host[name])
+            with self._timed_optimizer(keep_grads=True) as (_, grads):
+                m = make_train_step(cfg, self._train_tcfg(n))(
+                    params, opt.init_state(params), batch)[2]
+            out[n] = ({k: float(v) for k, v in m.items()}, grads[0])
+        exact = all(torch.equal(out[2][1][n], mean[n]) for n in mean)
+        rel = {"1_vs_2": self._per_tensor_rel(out[1][1], out[2][1]),
+               "1_vs_witness": self._per_tensor_rel(out[1][1], witness),
+               "2_vs_witness": self._per_tensor_rel(out[2][1], witness)}
+        m1, m2 = out[1][0], out[2][0]
+        loss_rel = abs(m2["loss"] - m1["loss"]) / abs(m1["loss"])
+        gnorm_rel = abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+        dtypes = {n: sorted({str(g.dtype) for g in out[n][1].values()})
+                  for n in out}
+        del host, out, mean, witness
+        self._free()
+        check(exact, "microbatches 2: the optimizer's gradient is not the "
+              "fp32 mean of the halves' own gradients")
+        check(dtypes == {1: ["torch.bfloat16"], 2: ["torch.float32"]},
+              f"gradient dtypes {dtypes}")
+        check(loss_rel <= MB_LOSS_RTOL, f"microbatches 2 vs 1: loss {loss_rel}")
+        check(gnorm_rel <= MB_GNORM_RTOL, f"microbatches 2 vs 1: grad norm "
+              f"{gnorm_rel}")
+        worst = {k: sorted(r.items(), key=lambda kv: kv[1], reverse=True)[:5]
+                 for k, r in rel.items()}
+        limits = {"1_vs_2": MB_GRAD_RTOL, "1_vs_witness": WITNESS_GRAD_RTOL,
+                  "2_vs_witness": WITNESS_GRAD_RTOL}
+        for k, lim in limits.items():
+            check(worst[k][0][1] <= lim, f"microbatch gradients {k}: "
+                  f"{worst[k]} over {lim}")
+        check(control > WITNESS_GRAD_RTOL, f"the plain lookup's embedding "
+              f"gradient passed the witness gate ({control})")
+        return {"layers": cfg.n_layers, "fp32_mean_of_halves_bitwise": exact,
+                "grad_dtypes": dtypes, "loss_rel": loss_rel,
+                "grad_norm_rel": gnorm_rel, "loss_rtol": MB_LOSS_RTOL,
+                "grad_norm_rtol": MB_GNORM_RTOL, "witness_loss": witness_loss,
+                "loss_1": m1["loss"], "per_tensor_worst": worst,
+                "per_tensor_embed": {k: r["embed"] for k, r in rel.items()},
+                "per_tensor_rtol": limits,
+                "control_plain_lookup_embed_vs_witness": control}
+
+    def _train_remat(self, params, cfg) -> dict:
+        """``remat_policy`` "full" against "none" on one batch from
+        ``params``: loss and every gradient (REMAT_LOSS_RTOL,
+        REMAT_GRAD_RTOL), sm90 launches (twice per layer under "full"),
+        peak memory of each."""
+        torch, AK = self.torch, self.AK
+        from repro_torch.train.train_step import lm_loss
+
+        named = dict(params.named_parameters())
+        batch = self._train_batch(cfg, 1)
+        out = {}
+        for policy in ("full", "none"):
+            self._free()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            n0 = AK.ATTN_SM90_LAUNCHES
+            t0 = time.perf_counter()
+            loss, _ = lm_loss(params, cfg.replace(remat_policy=policy), batch)
+            grads = torch.autograd.grad(loss, list(named.values()))
+            self.sync()
+            out[policy] = {
+                "loss": float(loss.detach()),
+                "seconds": time.perf_counter() - t0,
+                "sm90_launches": AK.ATTN_SM90_LAUNCHES - n0,
+                "peak_extra_gb": (torch.cuda.max_memory_allocated() - base)
+                / 1e9, "grads": dict(zip(named, grads))}
+            del loss, grads
+        loss_rel = abs(out["full"]["loss"] - out["none"]["loss"]) \
+            / abs(out["none"]["loss"])
+        grad_rel = self._grads_rel(out["full"]["grads"], out["none"]["grads"])
+        bitwise = out["full"]["loss"] == out["none"]["loss"] and all(
+            torch.equal(out["full"]["grads"][n], out["none"]["grads"][n])
+            for n in named)
+        check(loss_rel <= REMAT_LOSS_RTOL and grad_rel <= REMAT_GRAD_RTOL,
+              f"remat full vs none: loss {loss_rel}, grads {grad_rel}")
+        want = {"full": 2 * cfg.n_layers, "none": cfg.n_layers}
+        check(all(out[k]["sm90_launches"] == want[k] for k in want),
+              f"remat launches {[out[k]['sm90_launches'] for k in want]}")
+        for k in out:
+            del out[k]["grads"]
+        del named
+        self._free()
+        return {"layers": cfg.n_layers, **out, "loss_rel": loss_rel,
+                "grad_rel": grad_rel, "bitwise_equal": bitwise,
+                "loss_rtol": REMAT_LOSS_RTOL, "grad_rtol": REMAT_GRAD_RTOL}
+
+    def _train_gates(self, cfg) -> dict:
+        """Remat, then microbatches, on one set of weights."""
+        params = self._train_params(cfg)
+        for p in params.parameters():
+            p.requires_grad_(True)
+        out = {"remat_full_vs_none": self._train_remat(params, cfg),
+               "microbatches_2_vs_1": self._train_microbatches(params, cfg)}
+        del params
+        self._free()
+        return out
+
+    def _train_restart(self, cfg) -> dict:
+        """At CKPT_LAYERS layers: 5 steps uninterrupted; 3 steps, ``save``,
+        ``restore`` into weights of another seed, 2 more steps; and a
+        ResilientLoop over 5 steps checkpointing every 3 with an
+        InjectedFailure at step 4 (so one step is lost and replayed).  Both
+        must end on the uninterrupted run's weights and optimizer state,
+        bit for bit."""
+        import shutil
+
+        torch = self.torch
+        from repro_torch.train import checkpoint as ckpt
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train.fault_tolerance import (
+            InjectedFailure, ResilientLoop,
+        )
+        from repro_torch.train.train_step import make_train_step
+
+        root = ROOT / "build" / "train_ckpt"
+        shutil.rmtree(root, ignore_errors=True)
+        step = make_train_step(cfg, self._train_tcfg(1))
+        batches = [self._train_batch(cfg, i, batch=1) for i in range(5)]
+
+        def run(params, state, steps):
+            for i in steps:
+                params, state, _ = step(params, state, batches[i])
+            return params, state
+
+        def host(params, state):
+            """(step, {name: tensor}) of the weights and both moments."""
+            out = {f"params.{n}": p.detach().to("cpu", copy=True)
+                   for n, p in params.named_parameters()}
+            for part in ("m", "v"):
+                out.update({f"{part}.{n}": t.to("cpu", copy=True)
+                            for n, t in state[part].items()})
+            return int(state["step"]), out
+
+        def same(a, b) -> bool:
+            return a[0] == b[0] and all(torch.equal(a[1][n], b[1][n])
+                                        for n in a[1])
+
+        p = self._train_params(cfg)
+        want = host(*run(p, opt.init_state(p), range(5)))
+        del p
+        p = self._train_params(cfg)
+        p, st = run(p, opt.init_state(p), range(3))
+        t0 = time.perf_counter()
+        ckpt.save(str(root / "saved"), 3, p, st)
+        save_s = time.perf_counter() - t0
+        npz_gb = (root / "saved" / "step_00000003" / "arrays_0.npz") \
+            .stat().st_size / 1e9
+        del p, st
+        p = self._train_params(cfg, seed=1)
+        st = opt.init_state(p)
+        t0 = time.perf_counter()
+        _, manifest = ckpt.restore(str(root / "saved"), 3,
+                                   {"params": p, "opt_state": st})
+        restore_s = time.perf_counter() - t0
+        check(int(st["step"]) == 3 and manifest["dtypes"][
+            "params/layers/attn/wq"] == "bfloat16", "the restored state")
+        got_restore = host(*run(p, st, range(3, 5)))
+        del p, st
+        fails = {"armed": True}
+
+        def hook(s):
+            if s == 4 and fails["armed"]:
+                fails["armed"] = False
+                raise InjectedFailure("simulated host loss")
+
+        p = self._train_params(cfg)
+        loop = ResilientLoop(step_fn=step, batch_fn=lambda s: batches[s],
+                             ckpt_dir=str(root / "loop"), ckpt_every=3,
+                             keep=1, failure_hook=hook)
+        p, st, info = loop.run(p, opt.init_state(p), 0, 5)
+        got_loop = host(p, st)
+        del p, st
+        shutil.rmtree(root, ignore_errors=True)
+        self._free()
+        check(info["restores"] == 1 and info["final_step"] == 5,
+              f"the loop: {info}")
+        check(same(got_restore, want), "save, restore, 2 steps: not the "
+              "uninterrupted run's weights and state")
+        check(same(got_loop, want), "the restart loop: not the uninterrupted "
+              "run's weights and state")
+        return {"layers": cfg.n_layers, "save_s": save_s,
+                "restore_s": restore_s, "npz_gb": npz_gb,
+                "restore_then_steps_bitwise": True,
+                "loop_restores": info["restores"], "loop_bitwise": True}
+
+    def train(self) -> None:
+        t_phase = time.perf_counter()
+        self._free()
+        cfg = self._train_cfg()
+        main = self._train_main(cfg)
+        grads = self._train_attention_grads()
+        shape_row = self._attn_shape_row(1, cfg, TRAIN_SEQ, 22, TRAIN_ARCH)
+        self.attn_row["at_llama_train_shape"] = shape_row
+        gate_cfg = self._train_cfg(TRAIN_GATE_LAYERS)
+        emit({"phase": "train", "card": self.card, "arch": TRAIN_ARCH,
+              "dtype": cfg.dtype, "attn_impl": cfg.attn_impl,
+              "remat_policy": cfg.remat_policy, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "microbatches": TRAIN_MICROBATCHES, **main,
+              "attention_gradients": grads,
+              "tri_attn_at_train_shape": shape_row,
+              **self._train_gates(gate_cfg),
+              "checkpoint_restart": self._train_restart(
+                  self._train_cfg(CKPT_LAYERS)),
+              "phase_s": time.perf_counter() - t_phase})
+
+    def train_entry(self) -> None:
+        """``python -m repro_torch.launch.train`` as a user runs it."""
+        import os
+
+        self._free()
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                TRAIN_ARCH, "--steps", "3", "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--microbatches",
+                str(TRAIN_MICROBATCHES), "--log-every", "1", "--ckpt-dir",
+                str(ROOT / "build" / "train_entry")]
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, env=env, cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0, f"launch.train exited {proc.returncode}: "
+              f"{proc.stderr.strip().splitlines()[-5:]}")
+        check(any(f"params={TRAIN_PARAMS:,}" in ln for ln in lines)
+              and any(ln.startswith("final metrics:") for ln in lines),
+              f"launch.train printed {lines}")
+        emit({"phase": "train_entry", "card": self.card,
+              "command": "python -m repro_torch.launch.train "
+              + " ".join(argv[3:]), "rc": proc.returncode, "seconds": wall,
+              "stdout": lines})
+
+    def train_probe(self) -> None:
+        """Where the main path's loss goes over its TRAIN_STEPS steps, from
+        the same seed-0 weights and batches each time: at full depth in bf16
+        at each of PROBE_LRS; at TRAIN_GATE_LAYERS layers at 3e-4 in bf16
+        (pallas_mapped) and in fp32 (the same weights upcast, xla).  Loss
+        and grad norm a step; printed, not gated."""
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train.train_step import make_train_step
+
+        def steps(cfg, lr, fp32=False):
+            params = self._train_params(cfg)
+            if fp32:
+                params = params.float()
+                cfg = cfg.replace(dtype="float32", attn_impl="xla")
+            step = make_train_step(cfg, self._train_tcfg(lr=lr))
+            state, rows = opt.init_state(params), []
+            for i in range(TRAIN_STEPS):
+                params, state, m = step(params, state,
+                                        self._train_batch(cfg, i))
+                rows.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+            del params, state
+            self._free()
+            return rows
+
+        t_phase = time.perf_counter()
+        full, cut = self._train_cfg(), self._train_cfg(TRAIN_GATE_LAYERS)
+        emit({"phase": "train_probe", "card": self.card, "arch": TRAIN_ARCH,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "microbatches": TRAIN_MICROBATCHES, "warmup_steps": 2,
+              "full_depth_bf16_by_lr": {str(lr): steps(full, lr)
+                                        for lr in PROBE_LRS},
+              "layers": TRAIN_GATE_LAYERS,
+              "cut_bf16": steps(cut, 3e-4),
+              "cut_fp32_xla": steps(cut, 3e-4, fp32=True),
+              "phase_s": time.perf_counter() - t_phase})
+
     def kernels_line(self) -> None:
         """One row per kernel.  Map rows: launches are paper_scale's main
         path (one mapped launch per domain at N = 5e8, one membership launch
@@ -4040,6 +4947,9 @@ def main() -> int:
     if "--index-widths" in sys.argv[1:]:
         smoke.index_widths()
         return 0
+    if "--train-probe" in sys.argv[1:]:
+        smoke.train_probe()
+        return 0
     if "--sharded-sweep" in sys.argv[1:]:
         emit({"phase": "sharded_sweep", "card": smoke.card,
               **smoke.sharded_sweep()})
@@ -4064,6 +4974,10 @@ def main() -> int:
     smoke.moe_generate()
     smoke.hybrid_forward()
     smoke.hybrid_generate()
+    smoke.mla_forward()
+    smoke.mla_generate()
+    smoke.train()
+    smoke.train_entry()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -7,10 +7,12 @@ LM prefill/decode demo:
 
 ``--arch`` takes a ported family's arch: the dense ones (yi-6b,
 llama3.2-3b, ...), moonshot-v1-16b-a3b (moe), llama-3.2-vision-11b (vlm),
-rwkv6-3b (ssm), zamba2-1.2b (hybrid) and whisper-medium (audio); not
-deepseek-v2-236b (MLA attention).  Weights are random, from a ``torch.Generator``
-seeded 0 and made on ``--device`` (default ``cuda``; ``--device cpu`` for a
-machine without a card, with ``--smoke`` for the reduced config).  The vlm
+rwkv6-3b (ssm), zamba2-1.2b (hybrid), whisper-medium (audio) and
+deepseek-v2-236b (moe on MLA attention; 479 GB in bf16 at full width,
+``--smoke`` only on one card).  Weights are random, from a
+``torch.Generator`` seeded 0 and made on ``--device`` (default ``cuda``;
+``--device cpu`` for a machine without a card, with ``--smoke`` for the
+reduced config).  The vlm
 and audio archs get stub patch or frame embeddings (a seeded
 ``torch.Generator`` on ``--device``, × 0.1) as their ``extra`` input.
 

@@ -1,5 +1,6 @@
-"""GQA attention (RoPE, optional qk-norm) for full-sequence passes and for
-decode against a KV cache.
+"""GQA attention (RoPE, optional qk-norm) and MLA (deepseek-v2: low-rank
+q and kv, a compressed cache, one RoPE key shared by every head) for
+full-sequence passes and for decode against a cache.
 
 The plain path is *q-chunked*: query blocks of ``_Q_CHUNK`` rows, each with
 a mask built from positions, so no (S, T) probability matrix is ever whole.
@@ -9,8 +10,9 @@ The causal score space is the paper's 2D lower-triangular domain;
   * "pallas_mapped" — the CUDA tri_attn kernel, mapped λ grid (paper),
   * "pallas_bb"     — the CUDA tri_attn kernel, bounding-box grid
                       (paper baseline).
-The kernel is reached only by a cache-less causal pass (``forward``):
-prefill, decode and cross-attention (``cross_kv``: k and v projected from
+The kernel is reached only by a cache-less causal GQA pass (``forward``):
+MLA (q·k over dn + dr = 192, v 128 wide), prefill, decode and
+cross-attention (``cross_kv``: k and v projected from
 encoder or vision states, no RoPE, no mask, no cache) go through ``_sdpa``,
 as in the reference.
 
@@ -27,8 +29,6 @@ from repro_torch.models.common import dense_init, frozen_param, rms_norm, rope
 NEG_INF = -1e30
 _Q_CHUNK = 256
 
-UNPORTED_MLA = ("MLA attention (deepseek-v2) is not ported yet: ROADMAP "
-                "queue 1 item 8c (other model families: MLA)")
 UNPORTED_XLA_MAPPED = ("attn_impl='xla_mapped' (the dry-run's mapped XLA "
                        "attention) is not ported yet: ROADMAP queue 1 item 10 "
                        "(launch and analysis tooling)")
@@ -219,17 +219,110 @@ def gqa_cache_init(cfg, batch: int, max_seq: int, dtype, device=None):
 
 
 # ---------------------------------------------------------------------------
-# MLA (deepseek-v2)
+# MLA (deepseek-v2): a low-rank compressed kv cache and one RoPE key shared
+# by every head
 # ---------------------------------------------------------------------------
 
 
-def mla_init(generator, cfg, dtype, device=None):
-    raise NotImplementedError(UNPORTED_MLA)
+class MLAAttention(nn.Module):
+    """wdq (d, q_lora), q_norm (q_lora,), wuq (q_lora, H, dn + dr), wdkv (d,
+    kv_lora), kv_norm (kv_lora,), wuk (kv_lora, H, dn), wuv (kv_lora, H, dv),
+    wkr (d, dr), wo (H·dv, d)."""
+
+    def __init__(self, wdq, q_norm, wuq, wdkv, kv_norm, wuk, wuv, wkr, wo):
+        super().__init__()
+        self.wdq, self.q_norm, self.wuq = (frozen_param(w)
+                                           for w in (wdq, q_norm, wuq))
+        self.wdkv, self.kv_norm = frozen_param(wdkv), frozen_param(kv_norm)
+        self.wuk, self.wuv, self.wkr, self.wo = (frozen_param(w)
+                                                 for w in (wuk, wuv, wkr, wo))
 
 
-def mla_apply(p, cfg, x, *, positions=None, cache=None, cross_kv=None):
-    raise NotImplementedError(UNPORTED_MLA)
+#: the MLA weights in the order of ``MLAAttention``'s arguments
+MLA_NAMES = ("wdq", "q_norm", "wuq", "wdkv", "kv_norm", "wuk", "wuv", "wkr",
+             "wo")
+
+
+def mla_init(generator, cfg, dtype, device=None) -> MLAAttention:
+    d, h = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+    def dense(i, o):
+        return dense_init(generator, i, o, dtype, device=device)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    return MLAAttention(dense(d, ql), ones(ql), dense(ql, (h, dn + dr)),
+                        dense(d, kl), ones(kl), dense(kl, (h, dn)),
+                        dense(kl, (h, dv)), dense(d, dr), dense(h * dv, d))
+
+
+def mla_apply(p: MLAAttention, cfg, x, *, positions=None, cache=None,
+              cross_kv=None):
+    """Returns (out, new_cache).  The full path up-projects k and v from
+    the normed latent and runs ``_sdpa`` with q·k over dn + dr; with a cache
+    and at most 32 new tokens (decode) the absorbed path moves ``wuk`` onto
+    the query and ``wuv`` after the probabilities, so attention stays in the
+    kv_lora space (reference ``attention.py:373-393``)."""
+    if cross_kv is not None:
+        raise ValueError("MLA has no cross-attention")
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    positions = torch.as_tensor(positions, device=x.device).expand(b, s)
+
+    q = heads(rms_norm(x @ p.wdq, p.q_norm), p.wuq, h, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
+    ckv = x @ p.wdkv                                    # compressed kv
+    krope = rope((x @ p.wkr)[:, :, None, :], positions,
+                 cfg.rope_theta)[:, :, 0, :]            # shared rope key
+
+    new_cache = None
+    if cache is not None:
+        idx = cache["idx"]
+        new_cache = {**_cache_put(cache, "ckv", ckv, idx),
+                     **_cache_put(cache, "krope", krope, idx),
+                     "idx": idx + s}
+        ckv, krope = new_cache["ckv"], new_cache["krope"]
+    ckv_n = rms_norm(ckv, p.kv_norm)
+    t = ckv_n.shape[1]
+
+    if cfg.mla_absorb != "never" and cache is not None and s <= 32:
+        #   q·k = (W_uk q_nope)·c_kv ;  probs·v = (probs·c_kv)·W_uv
+        q_abs = torch.einsum("bshe,lhe->bshl", q_nope, p.wuk)
+        cf = ckv_n.to(torch.float32)
+        logits = (torch.einsum("bshl,btl->bhst", q_abs.to(torch.float32), cf)
+                  + torch.einsum("bshr,btr->bhst", q_rope.to(torch.float32),
+                                 krope.to(torch.float32))) * (dn + dr) ** -0.5
+        start = new_cache["idx"] - s
+        mask = (torch.arange(t, device=x.device)[None, :]
+                <= start + torch.arange(s, device=x.device)[:, None])
+        probs = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
+        o_lat = torch.einsum("bhst,btl->bshl", probs, cf)
+        out = torch.einsum("bshl,lhe->bshe", o_lat.to(x.dtype), p.wuv)
+        return out.reshape(b, s, h * dv) @ p.wo, new_cache
+
+    k_nope = heads(ckv_n, p.wuk, h, dn)                 # (B, T, H, dn)
+    v = heads(ckv_n, p.wuv, h, dv)                      # (B, T, H, dv)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(b, t, h, dr)], dim=-1)
+    out = _sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, h, positions,
+                logit_dim=dn + dr)
+    return out.reshape(b, s, h * dv) @ p.wo, new_cache
 
 
 def mla_cache_init(cfg, batch: int, max_seq: int, dtype, device=None):
-    raise NotImplementedError(UNPORTED_MLA)
+    """The compressed latent and the shared RoPE key; never int8 (the
+    reference offers no int8 MLA cache: ``kv_cache_quant`` applies to GQA
+    caches only)."""
+    return {
+        "ckv": torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, max_seq, cfg.qk_rope_dim), dtype=dtype,
+                             device=device),
+        "idx": 0,
+    }

@@ -4,7 +4,8 @@ Weights keep the reference's layouts: a projection is (in, *out), applied as
 ``x @ w`` over the flattened out dims.  Inits draw from an explicit
 ``torch.Generator``; they give the reference's distributions, not
 ``jax.random``'s numbers.  The logical-axis names and ``prepend_layers_axis``
-are sharding plumbing and wait for the training slice.
+are sharding plumbing and wait for sharded training (ROADMAP queue 1
+item 9b).
 """
 from __future__ import annotations
 

@@ -12,6 +12,13 @@ reference stacks every layer's weight on a leading ``layers`` axis (``wq``
 ``dec_layers.*`` (L, ...); the hybrid family's ``shared`` block is not
 stacked.  Each slice becomes one layer module.  Layouts are kept as they
 are, so the two packages compute the same products on the same numbers.
+
+``params_to_jax(model, cfg)`` is the inverse: the reference's stacked tree,
+numpy leaves (a bfloat16 leaf as raw 2-byte words, ``np.dtype("V2")``: this
+package does not need ``ml_dtypes``).  ``to_jax_tree`` maps any dict keyed
+by the model's parameter names (the optimizer's moments) the same way, and
+``jax_path`` names the reference leaf and the slice of it that one port
+parameter is; ``from_numpy`` reads a leaf back.
 """
 from __future__ import annotations
 
@@ -26,19 +33,74 @@ from repro_torch.models.common import SwiGLU
 from repro_torch.models import transformer as T
 
 
-def _tensor(a, device) -> torch.Tensor:
+def from_numpy(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor on ``device``; a bfloat16 leaf
+    (``ml_dtypes`` or raw 2-byte words, ``V2``) by reinterpreting its
+    bits."""
     a = np.array(a)          # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
             .to(device)
     return torch.from_numpy(a).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def jax_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """A port parameter name -> (the reference leaf's key path, the index of
+    this parameter's slice along its stacked axes).  ``layers.3.attn.wq`` ->
+    (``layers/attn/wq``, (3,)); ``groups.1.self_layers.2.ln1`` ->
+    (``groups/self/ln1``, (1, 2)); ``shared.attn.wq`` -> (``shared/attn/wq``,
+    ())."""
+    keys, ix = [], []
+    for part in name.split("."):
+        if part.isdigit():
+            ix.append(int(part))
+        else:
+            keys.append("self" if part == "self_layers" else part)
+    return tuple(keys), tuple(ix)
+
+
+def to_jax_tree(named: dict) -> dict:
+    """{port parameter name: tensor} -> the reference's nested dict, each
+    layer's slices stacked on the leading axes; numpy leaves."""
+    slices: dict = {}
+    for name, t in named.items():
+        keys, ix = jax_path(name)
+        slices.setdefault(keys, []).append((ix, to_numpy(t)))
+    tree: dict = {}
+    for keys, parts in slices.items():
+        if parts[0][0] == ():
+            leaf = parts[0][1]
+        else:
+            shape = tuple(max(ix[a] for ix, _ in parts) + 1
+                          for a in range(len(parts[0][0])))
+            leaf = np.empty(shape + parts[0][1].shape, parts[0][1].dtype)
+            for ix, a in parts:
+                leaf[ix] = a
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return tree
+
+
+def params_to_jax(model, cfg) -> dict:
+    """The reference's ``init_params`` tree for ``model``, numpy leaves."""
+    T.require_ported(cfg)
+    return to_jax_tree(dict(model.named_parameters()))
 
 
 def params_from_jax(tree, cfg, device="cuda"):
     T.require_ported(cfg)
 
     def t(a):
-        return _tensor(a, device)
+        return from_numpy(a, device)
 
     if cfg.family == "ssm":
         return _rwkv_from_jax(tree, cfg, t)
@@ -63,7 +125,9 @@ def params_from_jax(tree, cfg, device="cuda"):
                      lm_head)
 
 
-def _gqa(la, ix, t) -> attn.GQAAttention:
+def _gqa(la, ix, t) -> attn.GQAAttention | attn.MLAAttention:
+    if "wkr" in la:                        # MLA (deepseek-v2)
+        return attn.MLAAttention(*(t(la[n][ix]) for n in attn.MLA_NAMES))
     norms = {n: t(la[n][ix]) for n in ("q_norm", "k_norm") if n in la}
     return attn.GQAAttention(*(t(la[n][ix]) for n in ("wq", "wk", "wv", "wo")),
                              **norms)

@@ -15,8 +15,8 @@ capacity, sort and buffer.  The global dispatch is the grouped one at G = 1
 (same capacity, sort, drops and aux), so one batched body computes both.
 ``"a2a"`` is the reference's all-to-all expert parallelism over a mesh's
 ``model`` axis (``shard_map``); without a mesh it falls through to the global
-or grouped dispatch, and so it does here: the mesh path waits for the
-training slice (ROADMAP queue 1 item 9).
+or grouped dispatch, and so it does here: the mesh path waits for sharded
+training (ROADMAP queue 1 item 9b).
 
 How the port differs from the reference's jnp, on purpose:
   * the buffer is filled by a gather (each slot reads the token the sort put

@@ -17,20 +17,24 @@ The public API mirrors the reference's: ``init_params`` / ``forward``
 layouts (``models/convert.py`` loads a reference tree).  Causal
 self-attention in a cache-less ``forward`` (the hybrid family's shared block
 included) runs the tri_attn kernel under ``attn_impl`` ``pallas_*``;
-cross-attention and the whisper encoder's bidirectional attention are the
-plain ``_sdpa``, as in the reference.  ``extra`` (vision states or frames)
+cross-attention, the whisper encoder's bidirectional attention and MLA
+(deepseek-v2: q·k over 192, v 128 wide) are the plain ``_sdpa``, as in the
+reference.  ``extra`` (vision states or frames)
 is cast to the weights' dtype: torch's products do not promote a bf16 weight
 against fp32 states as jnp's do.  An RWKV layer runs the chunked WKV, and so
 the ``wkv`` kernel, when the sequence is a multiple of 64, and the
 step-by-step scan otherwise (decode), the reference's rule; a Mamba2 layer
 takes its chunked SSD or its scan by the same rule.  Passes that ask for no
-gradient run under ``torch.inference_mode()``; there is no remat.  MLA
-attention (deepseek-v2) raises ``NotImplementedError`` naming its ROADMAP
-item.
+gradient run under ``torch.inference_mode()``.  A pass that asks for one
+recomputes each layer in the backward by ``cfg.remat_policy`` (``_remat``:
+``"full"`` keeps only the layer boundaries, ``"dots"`` also the weight
+products' outputs, ``"none"`` everything), as the reference's
+``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 from torch import nn
@@ -51,12 +55,44 @@ RWKV_CHUNK = 64
 
 
 def require_ported(cfg) -> None:
-    """Raise NotImplementedError for what this port does not run yet: MLA
-    attention (deepseek-v2, a ``moe`` config), ROADMAP queue 1 item 8c."""
+    """Raise ValueError for a family this package does not know."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"{cfg.arch_id}: unknown family {cfg.family!r}")
-    if cfg.family in ("dense", "moe", "vlm") and cfg.attention_type != "gqa":
-        raise NotImplementedError(f"{cfg.arch_id}: {attn.UNPORTED_MLA}")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of products without batch dims (``x @ w``: aten mm / addmm),
+    recompute the rest — ``dots_with_no_batch_dims_saveable``'s rule."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``fn`` recomputed in the backward by ``cfg.remat_policy`` (``"none"``
+    when ``cfg.remat`` is off) when the pass records a gradient; as it is
+    otherwise (scoring and serving run under inference mode)."""
+    policy = cfg.remat_policy if cfg.remat else "none"
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {policy!r}")
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts,
+    )
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+
+    return run
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -64,10 +100,11 @@ def _dtype(cfg) -> torch.dtype:
 
 
 class DecoderLayer(nn.Module):
-    """ln1, ln2 (d,), attention, and an MLP (``mlp``) or, in the moe
-    family, a mixture of experts (``moe``) in its place."""
+    """ln1, ln2 (d,), attention (GQA, or MLA where ``cfg.attention_type``
+    says so), and an MLP (``mlp``) or, in the moe family, a mixture of
+    experts (``moe``) in its place."""
 
-    def __init__(self, ln1, ln2, attn_p: attn.GQAAttention,
+    def __init__(self, ln1, ln2, attn_p: attn.GQAAttention | attn.MLAAttention,
                  mlp: SwiGLU | None = None, moe: moe_mod.MoE | None = None):
         super().__init__()
         if (mlp is None) == (moe is None):
@@ -143,9 +180,10 @@ def _device(params) -> torch.device:
 def _layer_apply(p: DecoderLayer, cfg, x, *, positions=None, cache=None,
                  cross_kv=None, with_aux: bool = False):
     """Returns (x, new_cache), or (x, new_cache, moe aux) with with_aux."""
-    h, new_cache = attn.gqa_apply(p.attn, cfg, rms_norm(x, p.ln1),
-                                  positions=positions, cache=cache,
-                                  cross_kv=cross_kv)
+    apply = (attn.mla_apply if isinstance(p.attn, attn.MLAAttention)
+             else attn.gqa_apply)
+    h, new_cache = apply(p.attn, cfg, rms_norm(x, p.ln1), positions=positions,
+                         cache=cache, cross_kv=cross_kv)
     if cross_kv is not None:
         h = h * torch.tanh(p.xattn_gate).to(h.dtype)
     x = x + h
@@ -171,10 +209,11 @@ def _decoder_stack(params: DenseLM, cfg, x, *, positions=None, caches=None,
     with_aux also returns the summed MoE load-balancing loss."""
     new_caches = None if caches is None else []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = _remat(_layer_apply, cfg)
     for i, lp in enumerate(params.layers):
-        out = _layer_apply(lp, cfg, x, positions=positions,
-                           cache=None if caches is None else caches[i],
-                           with_aux=with_aux)
+        out = body(lp, cfg, x, positions=positions,
+                   cache=None if caches is None else caches[i],
+                   with_aux=with_aux)
         x, c = out[0], out[1]
         if with_aux:
             aux = aux + out[2]
@@ -190,17 +229,18 @@ def _vlm_stack(params: VisionLM, cfg, x, *, positions=None, caches=None,
     projects k and v from ``cross_states`` at every call, decode steps
     included, as the reference does."""
     new_caches = None if caches is None else []
+    body = _remat(_layer_apply, cfg)
     for g, gp in enumerate(params.groups):
         self_caches = None if caches is None else caches[g]["self"]
         new_self = None if caches is None else []
         for i, lp in enumerate(gp.self_layers):
-            x, c = _layer_apply(
+            x, c = body(
                 lp, cfg, x, positions=positions,
                 cache=None if self_caches is None else self_caches[i])
             if new_self is not None:
                 new_self.append(c)
-        x, _ = _layer_apply(gp.cross, cfg, x, positions=positions,
-                            cross_kv=cross_states)
+        x, _ = body(gp.cross, cfg, x, positions=positions,
+                    cross_kv=cross_states)
         if new_caches is not None:
             new_caches.append({"self": new_self})
     return x, new_caches
@@ -213,8 +253,30 @@ def _logits(params, cfg, h):
     return h.to(torch.float32) @ w.to(torch.float32)
 
 
+class _Lookup(torch.autograd.Function):
+    """``table[tokens]`` whose backward sums the rows of each token in fp32
+    and rounds once to the table's dtype.  In bf16 the plain lookup's
+    backward adds a token's rows one by one in bf16 (the reference's
+    ``jnp.take`` does too on the CPU), so a token repeated a thousand times,
+    as SyntheticLM's most frequent ones are in a 4096-token row, gets a
+    gradient off by about a tenth of the table's max."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        grad = torch.ops.aten.embedding_dense_backward(
+            g.to(torch.float32), tokens, ctx.rows, -1, False)
+        return grad.to(g.dtype), None
+
+
 def _embed(params, cfg, tokens):
-    return params.embed[tokens]
+    return _Lookup.apply(params.embed, tokens)
 
 
 def _tokens(params, tokens) -> torch.Tensor:
@@ -302,9 +364,9 @@ def _rwkv_stack(params: RWKVLM, cfg, x, caches=None):
     zero = None if caches is not None else _rwkv_zero_state(
         cfg, x.shape[0], x.device)
     new_caches = None if caches is None else []
+    body = _remat(_rwkv_layer_apply, cfg)
     for i, lp in enumerate(params.layers):
-        x, st = _rwkv_layer_apply(lp, cfg, x,
-                                  zero if caches is None else caches[i])
+        x, st = body(lp, cfg, x, zero if caches is None else caches[i])
         if new_caches is not None:
             new_caches.append(st)
     return x, new_caches
@@ -343,6 +405,11 @@ class HybridLM(nn.Module):
         return forward(self, self.cfg, tokens, positions=positions)
 
 
+def _mamba_layer_apply(lp: MambaLayer, cfg, x, state, conv_tail):
+    return m2.mamba2_apply(lp.mamba, cfg, rms_norm(x, lp.ln), state=state,
+                           conv_tail=conv_tail)
+
+
 def _hybrid_stack(params: HybridLM, cfg, x, *, positions=None, cache=None):
     """Loop over the Mamba2 layers; after layer i with i % period == period
     - 1 the shared block fires (invocation i // period).  ``cache``:
@@ -352,20 +419,21 @@ def _hybrid_stack(params: HybridLM, cfg, x, *, positions=None, cache=None):
     new = None if cache is None else {
         "layers": [], "shared": list(cache["shared"]),
         "idx": cache["idx"] + x.shape[1]}
+    mamba_body = _remat(_mamba_layer_apply, cfg)
+    shared_body = _remat(_layer_apply, cfg)
     for i, lp in enumerate(params.layers):
         lc = None if cache is None else cache["layers"][i]
-        h, state, tail = m2.mamba2_apply(
-            lp.mamba, cfg, rms_norm(x, lp.ln),
-            state=None if lc is None else lc["state"],
-            conv_tail=None if lc is None else lc["conv_tail"])
+        h, state, tail = mamba_body(
+            lp, cfg, x, None if lc is None else lc["state"],
+            None if lc is None else lc["conv_tail"])
         x = x + h
         if new is not None:
             new["layers"].append({"state": state, "conv_tail": tail})
         if i % period == period - 1:
             inv = i // period
-            x, c = _layer_apply(params.shared, cfg, x, positions=positions,
-                                cache=None if new is None
-                                else new["shared"][inv])
+            x, c = shared_body(params.shared, cfg, x, positions=positions,
+                               cache=None if new is None
+                               else new["shared"][inv])
             if new is not None:
                 new["shared"][inv] = c
     return x, new
@@ -461,11 +529,16 @@ def _bidir_attn(p: attn.GQAAttention, cfg, x):
 def _whisper_encode(params: WhisperLM, cfg, frames):
     """frames: (B, T_enc, d) stub embeddings -> encoder states."""
     x = frames + params.enc_pos[None, :frames.shape[1]]
+    body = _remat(_whisper_enc_layer, cfg)
     for lp in params.enc_layers:
-        x = x + _bidir_attn(lp.attn, cfg, layer_norm(x, lp.ln1_w, lp.ln1_b))
-        x = x + gelu_mlp(layer_norm(x, lp.ln2_w, lp.ln2_b), lp.mlp.up,
-                         lp.mlp.down)
+        x = body(lp, cfg, x)
     return layer_norm(x, params.enc_norm_w, params.enc_norm_b)
+
+
+def _whisper_enc_layer(lp: WhisperEncLayer, cfg, x):
+    x = x + _bidir_attn(lp.attn, cfg, layer_norm(x, lp.ln1_w, lp.ln1_b))
+    return x + gelu_mlp(layer_norm(x, lp.ln2_w, lp.ln2_b), lp.mlp.up,
+                        lp.mlp.down)
 
 
 def _cached_cross(p: attn.GQAAttention, cfg, x, xk, xv):
@@ -482,22 +555,32 @@ def _whisper_dec_stack(params: WhisperLM, cfg, x, enc_states, *,
     """``enc_states`` for a cache-less forward; ``cross`` ({k, v}, each
     (L, B, T_enc, Hk, hd), projected at prefill) against a cache."""
     new_caches = None if caches is None else []
+    body = _remat(_whisper_dec_layer, cfg)
     for i, lp in enumerate(params.dec_layers):
-        h, c = attn.gqa_apply(
-            lp.attn, cfg, layer_norm(x, lp.ln1_w, lp.ln1_b),
-            positions=positions, cache=None if caches is None else caches[i])
-        x = x + h
-        nx = layer_norm(x, lp.lnx_w, lp.lnx_b)
-        if cross is not None:
-            x = x + _cached_cross(lp.xattn, cfg, nx, cross["k"][i],
-                                  cross["v"][i])
-        else:
-            x = x + attn.gqa_apply(lp.xattn, cfg, nx, cross_kv=enc_states)[0]
-        x = x + gelu_mlp(layer_norm(x, lp.ln2_w, lp.ln2_b), lp.mlp.up,
-                         lp.mlp.down)
+        x, c = body(lp, cfg, x, enc_states, positions,
+                    None if caches is None else caches[i],
+                    None if cross is None else (cross["k"][i],
+                                                cross["v"][i]))
         if new_caches is not None:
             new_caches.append(c)
     return x, new_caches
+
+
+def _whisper_dec_layer(lp: WhisperDecLayer, cfg, x, enc_states, positions,
+                       cache, cross_kv):
+    """One decoder layer; ``cross_kv``: this layer's (k, v) projected at
+    prefill, or None to attend over ``enc_states``."""
+    h, c = attn.gqa_apply(lp.attn, cfg, layer_norm(x, lp.ln1_w, lp.ln1_b),
+                          positions=positions, cache=cache)
+    x = x + h
+    nx = layer_norm(x, lp.lnx_w, lp.lnx_b)
+    if cross_kv is not None:
+        x = x + _cached_cross(lp.xattn, cfg, nx, *cross_kv)
+    else:
+        x = x + attn.gqa_apply(lp.xattn, cfg, nx, cross_kv=enc_states)[0]
+    x = x + gelu_mlp(layer_norm(x, lp.ln2_w, lp.ln2_b), lp.mlp.up,
+                     lp.mlp.down)
+    return x, c
 
 
 def _whisper_cross(params: WhisperLM, cfg, enc_states, cross):
@@ -543,7 +626,10 @@ def _dense_layer(generator, cfg, dtype, device, cross: bool = False):
         return torch.ones(d, dtype=dtype, device=device)
 
     ln1, ln2 = ones(), ones()
-    attn_p = attn.gqa_init(generator, cfg, dtype, device)
+    if cfg.attention_type == "mla" and not cross:
+        attn_p = attn.mla_init(generator, cfg, dtype, device)
+    else:
+        attn_p = attn.gqa_init(generator, cfg, dtype, device)
     if cfg.family == "moe" and not cross:
         return DecoderLayer(ln1, ln2, attn_p,
                             moe=moe_mod.moe_init(generator, cfg, dtype,
@@ -666,7 +752,8 @@ def forward(params, cfg, tokens, extra=None, positions=None,
 
 def init_cache(cfg, batch: int, max_seq: int, extra_len: int = 0,
                device="cuda"):
-    """Per-layer caches: GQA k/v of ``max_seq`` rows (dense, moe; vlm: the
+    """Per-layer caches: GQA k/v of ``max_seq`` rows (dense, moe; MLA: the
+    latent ``ckv`` and the shared ``krope``; vlm: the
     self layers of each group, ``{"self": [...]}``; audio: the decoder
     layers, plus ``cross`` k/v (L, B, extra_len, Hk, hd) that prefill
     fills), or the RWKV state (ssm: tmix_x, cmix_x (B, d) and wkv (B, h, hd,
@@ -678,8 +765,9 @@ def init_cache(cfg, batch: int, max_seq: int, extra_len: int = 0,
         return _hybrid_cache(cfg, batch, max_seq, dtype, device)
 
     def gqa(n):
-        return [attn.gqa_cache_init(cfg, batch, max_seq, dtype, device)
-                for _ in range(n)]
+        one = (attn.mla_cache_init if cfg.attention_type == "mla"
+               else attn.gqa_cache_init)
+        return [one(cfg, batch, max_seq, dtype, device) for _ in range(n)]
 
     if cfg.family == "ssm":
         return {"layers": [_rwkv_zero_state(cfg, batch, device)

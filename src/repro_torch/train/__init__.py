@@ -1,2 +1,2 @@
-"""Training-side entry points of the port: so far the scoring path
-(``train_step.lm_loss`` / ``make_eval_step``)."""
+"""Training on one device: the optimizer, the train step, synthetic data,
+checkpoints and the checkpoint-restart loop."""

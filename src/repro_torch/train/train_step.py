@@ -1,9 +1,13 @@
-"""Loss and the eval step over ``forward`` — the scoring entry point.
+"""Loss and the train / eval steps over ``forward``.
 
 Causal-LM cross entropy (fp32 logsumexp), z-loss and the MoE aux term
 (``forward(..., with_aux=True)``: the moe family's summed load-balancing
-loss, 0 for the other families).  The optimizer, ``make_train_step``, microbatching and gradient
-compression wait for the training slice (ROADMAP queue 1 item 9).
+loss, 0 for the other families).  ``make_train_step`` differentiates it
+with autograd, accumulates microbatches (slices of the batch's leading dim)
+in fp32 and applies AdamW (``train/optimizer.py``), as the reference's
+``make_train_step`` does on one device.  Each layer is recomputed in the
+backward by ``cfg.remat_policy`` (``models/transformer.py``).  The int8
+cross-pod gradient compression waits for ROADMAP queue 1 item 9b.
 """
 from __future__ import annotations
 
@@ -12,12 +16,21 @@ import dataclasses
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.train import optimizer as opt
+
+UNPORTED_GRAD_COMPRESSION = (
+    "grad_compression (the int8 cross-pod all-reduce) is not ported yet: "
+    "ROADMAP queue 1 item 9b (sharded training)")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+    optimizer: opt.OptimizerConfig = dataclasses.field(
+        default_factory=opt.OptimizerConfig)
+    microbatches: int = 1
     z_loss_coef: float = 1e-4
     moe_aux_coef: float = 1e-2
+    grad_compression: bool = False   # int8 cross-pod all-reduce
 
 
 def lm_loss(params, cfg, batch, z_loss_coef=1e-4, moe_aux_coef=1e-2):
@@ -41,6 +54,59 @@ def lm_loss(params, cfg, batch, z_loss_coef=1e-4, moe_aux_coef=1e-2):
     zl = z_loss_coef * torch.sum(torch.square(lse) * mask) / denom
     total = ce + zl + moe_aux_coef * aux
     return total, {"ce": ce, "z_loss": zl, "moe_aux": aux}
+
+
+def make_train_step(cfg, tcfg: TrainConfig):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): ``params`` (the model) and ``opt_state`` are updated in place
+    and returned; metrics are 0-d fp32 tensors ``loss``, ``ce``, ``z_loss``,
+    ``moe_aux``, ``grad_norm`` and ``lr``.
+
+    The batch's leading dim is split into ``microbatches`` slices; their
+    gradients are summed in fp32 and averaged.  With one microbatch the
+    gradients keep the parameters' dtype, as the reference's do."""
+    if tcfg.grad_compression:
+        raise NotImplementedError(UNPORTED_GRAD_COMPRESSION)
+
+    def grads_of(params, batch):
+        named = dict(params.named_parameters())
+        for p in named.values():
+            p.requires_grad_(True)
+        n = tcfg.microbatches
+        if n <= 1:
+            slices = [batch]
+        else:
+            rows = len(batch["tokens"]) // n
+            slices = [{k: None if v is None else v[i * rows:(i + 1) * rows]
+                       for k, v in batch.items()} for i in range(n)]
+        loss_a, metrics_a, grads_a = None, None, None
+        for mb in slices:
+            loss, metrics = lm_loss(params, cfg, mb, tcfg.z_loss_coef,
+                                    tcfg.moe_aux_coef)
+            grads = torch.autograd.grad(loss, list(named.values()))
+            loss, metrics = loss.detach(), {k: v.detach()
+                                            for k, v in metrics.items()}
+            if n <= 1:
+                return loss, metrics, dict(zip(named, grads))
+            if grads_a is None:
+                loss_a, metrics_a = loss, metrics
+                grads_a = [g.to(torch.float32) for g in grads]
+            else:
+                loss_a = loss_a + loss
+                metrics_a = {k: metrics_a[k] + metrics[k] for k in metrics}
+                torch._foreach_add_(grads_a, list(grads))
+            del grads
+        inv = 1.0 / n
+        torch._foreach_mul_(grads_a, inv)
+        return (loss_a * inv, {k: v * inv for k, v in metrics_a.items()},
+                dict(zip(named, grads_a)))
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = grads_of(params, batch)
+        om = opt.apply_updates(params, grads, opt_state, tcfg.optimizer)
+        return params, opt_state, {"loss": loss, **metrics, **om}
+
+    return train_step
 
 
 def make_eval_step(cfg, tcfg: TrainConfig):

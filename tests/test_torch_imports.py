@@ -77,3 +77,9 @@ def test_port_imports_neither_jax_nor_repro():
     # continuous batching for the engine backend (queue 1 item 7); the
     # probe above holds it, like every module, free of jax and repro
     assert "repro_torch.serving.async_engine" in seen["modules"]
+    # single-device training (queue 1 item 9a)
+    for name in ("repro_torch.train.optimizer", "repro_torch.train.data",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.train.fault_tolerance",
+                 "repro_torch.launch.train"):
+        assert name in seen["modules"]

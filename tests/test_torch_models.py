@@ -302,20 +302,27 @@ def test_int8_kv_decode_matches_reference(model):
                                   or ref_smoke(a).attention_type == "mla"])
 def test_unported_families_raise(arch):
     """Every family is ported (moe and hybrid held in
-    tests/test_torch_{moe,hybrid}.py); deepseek-v2-236b, a moe config on
-    MLA attention, still raises, naming ROADMAP item 8c."""
+    tests/test_torch_{moe,hybrid}.py), and so is deepseek-v2-236b, a moe
+    config on MLA attention (held in tests/test_torch_mla.py): it builds
+    with MLA layers, takes an MLA cache and runs a forward."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
-        T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
-        T.init_cache(cfg, 1, 8, device="cpu")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert all(isinstance(lp.attn, attention.MLAAttention)
+               for lp in params.layers)
+    cache = T.init_cache(cfg, 1, 8, device="cpu")
+    assert cache["layers"][0]["ckv"].shape == (1, 8, cfg.kv_lora_rank)
+    logits = T.forward(params, cfg, torch.zeros((1, 8), dtype=torch.int64))
+    assert logits.shape == (1, 8, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_unported_attention_raises():
-    """MLA (item 8) and xla_mapped (item 10) still raise.  Cross-attention
-    (item 7) is ported: ``cross_kv`` attends over the given states without
-    a mask and takes no cache (its parity is held in
-    ``tests/test_torch_cross_models.py``)."""
+    """xla_mapped (item 10) still raises.  Cross-attention (item 7) is
+    ported: ``cross_kv`` attends over the given states without a mask and
+    takes no cache (its parity is held in
+    ``tests/test_torch_cross_models.py``).  MLA (item 8c) is ported: a
+    config with ``attention_type="mla"`` builds MLA layers, which take no
+    ``cross_kv`` (parity in ``tests/test_torch_mla.py``)."""
     rcfg, cfg, rp, p = _gqa_pair()
     x = torch.zeros((1, 512, cfg.d_model))
     xs = (_rng(8).standard_normal((1, 12, cfg.d_model)) * 0.3) \
@@ -330,10 +337,13 @@ def test_unported_attention_raises():
     assert np.abs(_np(got) - _np(want)).max() < TOL
     with pytest.raises(NotImplementedError, match="item 10"):
         attention.gqa_apply(p, cfg.replace(attn_impl="xla_mapped"), x)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        attention.mla_init(torch.Generator(), cfg, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.init_params(cfg.replace(attention_type="mla"), device="cpu")
+    mla_cfg = get_smoke_config("deepseek-v2-236b")
+    mla = attention.mla_init(torch.Generator(), mla_cfg, torch.float32)
+    assert isinstance(mla, attention.MLAAttention)
+    xm = torch.zeros((1, 4, mla_cfg.d_model))
+    assert attention.mla_apply(mla, mla_cfg, xm)[0].shape == xm.shape
+    with pytest.raises(ValueError, match="cross-attention"):
+        attention.mla_apply(mla, mla_cfg, xm, cross_kv=xm)
 
 
 def test_kernel_impl_needs_a_card_or_interpret(model, monkeypatch):

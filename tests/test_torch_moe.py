@@ -251,13 +251,19 @@ def test_init_params_matches_reference_shapes(full):
 
 
 def test_mla_still_raises():
-    """deepseek-v2-236b is a moe config on MLA attention: it still raises,
-    naming ROADMAP item 8c."""
+    """deepseek-v2-236b is a moe config on MLA attention: it is ported
+    (ROADMAP item 8c; parity in tests/test_torch_mla.py).  Its layers are
+    MLA attention and a MoE, its cache the MLA latent, and its forward
+    returns the MoE aux loss."""
     cfg = get_smoke_config("deepseek-v2-236b")
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        T.init_cache(cfg, 1, 8, device="cpu")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert all(lp.mlp is None and isinstance(lp.moe, moe.MoE)
+               for lp in params.layers)
+    cache = T.init_cache(cfg, 1, 8, device="cpu")
+    assert set(cache["layers"][0]) == {"ckv", "krope", "idx"}
+    _, aux = T.forward(params, cfg, torch.zeros((1, 8), dtype=torch.int64),
+                       with_aux=True)
+    assert float(aux) > 0
 
 
 # --- forward, lm_loss --------------------------------------------------------
