@@ -5,6 +5,8 @@
     python3 chip_smoke.py --index-widths   # device, build, index_widths only
     python3 chip_smoke.py --sharded-sweep  # device, build, the sweep's split
     python3 chip_smoke.py --train-probe    # device, build, train_probe
+    python3 chip_smoke.py --sharded-train  # device, build, train_entry,
+                                           # sharded_train
 
 Phases, each printing one JSON line:
 
@@ -201,6 +203,21 @@ Phases, each printing one JSON line:
   train_entry  python -m repro_torch.launch.train --arch llama3.2-3b
                --steps 3 --batch 2 --seq 4096 --microbatches 2 as a
                subprocess: exit 0, its parameter count and final metrics
+  sharded_train  a 1-rank NCCL group (TCPStore on 127.0.0.1) and
+               make_local_mesh() (1, 1): the train phase's first step on
+               the single-device step, then from the same weights and batch
+               on the sharded step with the weights and moments laid out
+               as DTensors: loss, grad norm and every parameter bitwise
+               (or within 1e-6 relative), 112 sm90 launches counted by the
+               wrappers and in the profiler's trace, a second step's time
+               and the peak memory; compressed_psum_mean on the embedding
+               gradient against the formula in torch, timed; then
+               python -m torch.distributed.run --standalone
+               --nproc-per-node 1 -m repro_torch.launch.train with
+               train_entry's arguments: exit 0, the same parameter count,
+               final metrics within 1e-5 relative of train_entry's.  One
+               card, so every collective is a 1-rank one; multi-rank
+               numerics are held on the CPU (tests/test_torch_distributed.py)
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
@@ -524,6 +541,11 @@ REMAT_LOSS_RTOL, REMAT_GRAD_RTOL = 1e-6, 1e-3
 #: remat at 4 layers on one set of weights; the checkpoint and the restart
 #: loop, which hold bitwise equality, at 1
 TRAIN_GATE_LAYERS, CKPT_LAYERS = 4, 1
+#: the sharded step against the single-device step from the same weights
+#: and batch: loss, grad norm and each parameter within this relative
+#: difference (one rank: they are equal bit for bit); the entry point under
+#: torch.distributed.run against train_entry's final metrics
+SHARDED_RTOL, SHARDED_ENTRY_RTOL = 1e-6, 1e-5
 #: --train-probe: the main path's 4 steps at these learning rates (full
 #: depth, bf16), and at TRAIN_GATE_LAYERS layers in bf16 and in fp32 at the
 #: main path's 3e-4
@@ -543,6 +565,14 @@ def _rel(got, want) -> float:
     """max |got - want| over max |want|, in fp32."""
     want = want.float()
     return float((got.float() - want).abs().max()) / float(want.abs().max())
+
+
+def _final_metrics(lines: list) -> dict:
+    """launch.train's ``final metrics: {...}`` line as a dict of floats."""
+    import ast
+
+    line = [ln for ln in lines if ln.startswith("final metrics:")][-1]
+    return ast.literal_eval(line.split(":", 1)[1].strip())
 
 
 @contextlib.contextmanager
@@ -3678,12 +3708,12 @@ class Smoke:
         buf = torch.randn((cfg.n_experts, cap, cfg.d_model), device="cuda",
                           dtype=torch.bfloat16)
         with torch.inference_mode():
-            moe._experts(m, buf)
+            moe._experts(m.gate, m.up, m.down, buf)
             self.sync()
             m0 = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             with profile(activities=[ProfilerActivity.CPU]) as prof:
-                moe._experts(m, buf)
+                moe._experts(m.gate, m.up, m.down, buf)
                 self.sync()
             peak = torch.cuda.max_memory_allocated() - m0
             ops_seen = sorted({e.key for e in prof.key_averages()})
@@ -4814,6 +4844,7 @@ class Smoke:
         shape_row = self._attn_shape_row(1, cfg, TRAIN_SEQ, 22, TRAIN_ARCH)
         self.attn_row["at_llama_train_shape"] = shape_row
         gate_cfg = self._train_cfg(TRAIN_GATE_LAYERS)
+        self.train_step_s = main["step_s_median_after_first"]
         emit({"phase": "train", "card": self.card, "arch": TRAIN_ARCH,
               "dtype": cfg.dtype, "attn_impl": cfg.attn_impl,
               "remat_policy": cfg.remat_policy, "batch": TRAIN_BATCH,
@@ -4846,10 +4877,200 @@ class Smoke:
         check(any(f"params={TRAIN_PARAMS:,}" in ln for ln in lines)
               and any(ln.startswith("final metrics:") for ln in lines),
               f"launch.train printed {lines}")
+        self.train_entry_final = _final_metrics(lines)
         emit({"phase": "train_entry", "card": self.card,
               "command": "python -m repro_torch.launch.train "
               + " ".join(argv[3:]), "rc": proc.returncode, "seconds": wall,
               "stdout": lines})
+
+    def _sharded_step(self, cfg, mesh) -> dict:
+        """The train phase's first step twice from seed-0 weights: on the
+        single-device step, then, from the same weights put back and laid
+        out on ``mesh``, on the sharded step under the profiler (the main
+        path's counts reset just before it); then one more sharded step,
+        timed.  The embedding gradient of the first is kept for the
+        compressed all-reduce."""
+        torch, AK = self.torch, self.AK
+        from torch.distributed.tensor import DTensor
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train import sharded
+        from repro_torch.train.train_step import make_train_step
+
+        tcfg = self._train_tcfg()
+        batches = [self._train_batch(cfg, i) for i in range(2)]
+        params = self._train_params(cfg)
+        host = {n: p.detach().to("cpu", copy=True)
+                for n, p in params.named_parameters()}
+        state = opt.init_state(params)
+        with self._timed_optimizer(keep_grads=True) as (_, grads):
+            params, state, m1 = make_train_step(cfg, tcfg)(
+                params, state, batches[0])
+        embed_grad = grads[0]["embed"]
+        del grads
+        single = {k: float(v) for k, v in m1.items()}
+        want = {n: p.detach().to("cpu", copy=True)
+                for n, p in params.named_parameters()}
+        del state
+        with torch.no_grad():
+            for n, p in params.named_parameters():
+                p.copy_(host[n])
+        del host
+        self._free()
+        torch.cuda.reset_peak_memory_stats()
+        params, state = sharded.shard_(params, cfg, mesh)
+        check(all(isinstance(p, DTensor) and p.device.type == "cuda"
+                  for p in params.parameters())
+              and all(isinstance(t, DTensor) and t.device.type == "cuda"
+                      for part in ("m", "v") for t in state[part].values()),
+              "the sharded state is not DTensors on the card")
+        step = sharded.make_sharded_train_step(cfg, tcfg, mesh)
+        self.sync()
+        self.reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, state, m2 = step(params, state, batches[0])
+            self.sync()
+        counts = self.counts()
+        traced = sum(e.count for e in prof.key_averages()
+                     if e.device_type.name == "CUDA"
+                     and "ta_sm90_kernel" in e.key)
+        del prof
+        self._add_sm90("sharded_train", counts)
+        got = {k: float(v) for k, v in m2.items()}
+        rel = {k: abs(got[k] - single[k]) / max(abs(single[k]), 1e-30)
+               for k in single}
+        param_rel, bitwise = 0.0, True
+        for n, p in params.named_parameters():
+            a = p.to_local().detach().cpu()
+            if torch.equal(a, want[n]):
+                continue
+            bitwise = False
+            b = want[n].float()
+            param_rel = max(param_rel, float((a.float() - b).abs().max())
+                            / max(float(b.abs().max()), 1e-30))
+        del want
+        check(counts["tri_attn_sm90"] == TRAIN_LAUNCHES_PER_STEP
+              and counts["tri_attn"] == counts["tri_attn_sm90"]
+              and traced == TRAIN_LAUNCHES_PER_STEP,
+              f"sharded step: sm90 launches {counts}, traced {traced}, want "
+              f"{TRAIN_LAUNCHES_PER_STEP}")
+        check(all(r <= SHARDED_RTOL for r in rel.values())
+              and param_rel <= SHARDED_RTOL,
+              f"sharded step against the single-device step: metrics {rel},"
+              f" parameters {param_rel}")
+        t0 = time.perf_counter()
+        params, state, m3 = step(params, state, batches[1])
+        self.sync()
+        step_s = time.perf_counter() - t0
+        check(all(math.isfinite(float(v)) for v in m3.values())
+              and int(state["step"]) == 2, f"the second sharded step: {m3}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del params, state, batches
+        self._free()
+        return {"single_device": single, "sharded": got, "metric_rel": rel,
+                "param_rel_max": param_rel, "params_bitwise": bitwise,
+                "rtol": SHARDED_RTOL, "main_path": counts,
+                "sm90_kernels_traced": traced,
+                "second_step_s": step_s,
+                "train_phase_step_s": getattr(self, "train_step_s", None),
+                "peak_gb": peak, "embed_grad": embed_grad}
+
+    def _compressed(self, g, group) -> dict:
+        """compressed_psum_mean on one leaf over the 1-rank group against
+        the formula in torch (quantize against the chunk's absmax / 127,
+        round half to even, sum, dequantize over the rank count), timed."""
+        torch = self.torch
+        from repro_torch.distribution import compression as comp
+
+        out = comp.compressed_psum_mean_leaf(g, group)
+        flat = torch.nn.functional.pad(
+            g.float().reshape(-1), (0, (-g.numel()) % comp.CHUNK)
+        ).reshape(-1, comp.CHUNK)
+        scale = flat.abs().amax(dim=1, keepdim=True) * (1.0 / 127.0)
+        q = torch.round(flat / torch.clamp(scale, min=1e-12))
+        want = (q * scale).reshape(-1)[:g.numel()].reshape(g.shape)
+        err = float((out - want).abs().max())
+        bound = comp.quantization_error_bound(g)
+        vs_grad = float((out - g).abs().max())
+        check(err == 0.0 and vs_grad <= bound * (1 + 1e-6),
+              f"compressed_psum_mean: {err} from the formula, {vs_grad} from"
+              f" the gradient (bound {bound})")
+        ms = self.time_ms(lambda: comp.compressed_psum_mean_leaf(g, group))
+        return {"leaf": "embed grad", "shape": list(g.shape),
+                "dtype": str(g.dtype), "max_abs_err_vs_formula": err,
+                "max_abs_err_vs_grad": vs_grad, "error_bound": bound,
+                "ms": ms}
+
+    def _sharded_entry(self) -> dict:
+        """train_entry's command under torch.distributed.run, one process:
+        the sharded step over a (1, 1) NCCL mesh."""
+        import os
+
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+                "--arch", TRAIN_ARCH, "--steps", "3", "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+                str(TRAIN_MICROBATCHES), "--log-every", "1", "--ckpt-dir",
+                str(ROOT / "build" / "sharded_entry")]
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, env=env, cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0, f"torch.distributed.run launch.train "
+              f"exited {proc.returncode}: "
+              f"{proc.stderr.strip().splitlines()[-8:]}")
+        check(any(f"params={TRAIN_PARAMS:,}" in ln
+                  and "mesh={'data': 1, 'model': 1}" in ln for ln in lines),
+              f"launch.train under torch.distributed.run printed {lines}")
+        got, want = _final_metrics(lines), self.train_entry_final
+        rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+               for k in want}
+        check(set(got) == set(want)
+              and all(r <= SHARDED_ENTRY_RTOL for r in rel.values()),
+              f"sharded entry point against train_entry: {rel}")
+        return {"command": "python -m torch.distributed.run "
+                + " ".join(argv[3:]), "rc": proc.returncode,
+                "seconds": wall, "final": got, "rel_to_train_entry": rel,
+                "rtol": SHARDED_ENTRY_RTOL, "stdout": lines}
+
+    def sharded_train(self) -> None:
+        """The sharded step on the card: in process over a 1-rank NCCL
+        group, then the launcher under torch.distributed.run."""
+        from datetime import timedelta
+
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_local_mesh
+
+        t_phase = time.perf_counter()
+        self._free()
+        store = dist.TCPStore("127.0.0.1", 0, 1, True,
+                              timeout=timedelta(seconds=120))
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=self.torch.device("cuda", 0))
+        try:
+            mesh = make_local_mesh()
+            backend = dist.get_backend()
+            main = self._sharded_step(self._train_cfg(), mesh)
+            compressed = self._compressed(main.pop("embed_grad"),
+                                          mesh.get_group("data"))
+        finally:
+            dist.destroy_process_group()
+        self._free()
+        emit({"phase": "sharded_train", "card": self.card, "arch": TRAIN_ARCH,
+              "mesh": {"data": 1, "model": 1}, "backend": backend,
+              "limit": "one card: every collective is a 1-rank NCCL "
+              "collective; multi-rank numerics are held on the CPU "
+              "(tests/test_torch_distributed.py)",
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "microbatches": TRAIN_MICROBATCHES, **main,
+              "compressed_psum_mean": compressed,
+              "entry_point": self._sharded_entry(),
+              "phase_s": time.perf_counter() - t_phase})
 
     def train_probe(self) -> None:
         """Where the main path's loss goes over its TRAIN_STEPS steps, from
@@ -4950,6 +5171,10 @@ def main() -> int:
     if "--train-probe" in sys.argv[1:]:
         smoke.train_probe()
         return 0
+    if "--sharded-train" in sys.argv[1:]:
+        smoke.train_entry()
+        smoke.sharded_train()
+        return 0
     if "--sharded-sweep" in sys.argv[1:]:
         emit({"phase": "sharded_sweep", "card": smoke.card,
               **smoke.sharded_sweep()})
@@ -4978,6 +5203,7 @@ def main() -> int:
     smoke.mla_generate()
     smoke.train()
     smoke.train_entry()
+    smoke.sharded_train()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

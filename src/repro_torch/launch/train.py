@@ -1,16 +1,24 @@
-"""Training launcher on one device: random weights, the synthetic data,
-the checkpoint-restart loop.
+"""Training launcher: random weights, the synthetic data, the
+checkpoint-restart loop; on one device, or sharded over every rank of a
+``torch.distributed.run`` job.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --steps 3 --batch 2 --seq 4096 --microbatches 2
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --arch llama3.2-3b \
+        --smoke --device cpu
 
 Runs on ``--device`` (default ``cuda``); on a machine without a card it
 refuses to start unless ``--device cpu`` (then ``--smoke`` for the reduced
 config; the tri_attn kernel's plain version stands in for it).  Weights are
 random, from a ``torch.Generator`` seeded 0, in the config's dtype; the
 attention runs the tri_attn kernel (``attn_impl="pallas_mapped"``) where the
-config's attention reaches it.  ``--production-mesh`` (the sharded step)
-waits for ROADMAP queue 1 item 9b.
+config's attention reaches it.  Under ``torch.distributed.run`` (``RANK``
+and ``WORLD_SIZE`` set) it opens the process group (NCCL on ``cuda``, one
+card a rank; gloo with ``--device cpu``), lays the model and the optimizer
+state out on ``make_local_mesh()`` (``--production-mesh``:
+``make_production_mesh()``, which needs 256 ranks) and trains through the
+sharded step (``train/sharded.py``); rank 0 prints.
 """
 from __future__ import annotations
 
@@ -23,18 +31,33 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.common import count_params
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
+from repro_torch.train import sharded
 from repro_torch.train.data import DataConfig, SyntheticLM
 from repro_torch.train.fault_tolerance import ResilientLoop, StepWatchdog
 from repro_torch.train.train_step import TrainConfig, make_train_step
 
 NO_CARD = ("no CUDA device: pass --device cpu to train on the CPU (with "
            "--smoke for the reduced config)")
-UNPORTED_MESH = ("--production-mesh (the sharded train step) is not ported "
-                 "yet: ROADMAP queue 1 item 9b (sharded training)")
+
+
+def _mesh(args, device_type: str):
+    """The mesh to train on, or None for one device (run alone)."""
+    distributed = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if distributed:
+        mesh_mod.init_distributed(device_type)
+    if not (distributed or args.production_mesh):
+        return None
+    try:
+        return (mesh_mod.make_production_mesh(device_type=device_type)
+                if args.production_mesh
+                else mesh_mod.make_local_mesh(device_type=device_type))
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(str(e)) from e
 
 
 def main(argv=None) -> None:
@@ -60,11 +83,14 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError(UNPORTED_MESH)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(NO_CARD)
+    mesh = _mesh(args, device.type)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    log = print if rank0 else (lambda *a, **k: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     over = {"max_seq": args.seq, "attn_impl": "pallas_mapped",
             "pallas_interpret": device.type == "cpu"}
@@ -82,10 +108,16 @@ def main(argv=None) -> None:
     )
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                            device)
-    opt_state = opt.init_state(params)
-    step = make_train_step(cfg, tcfg)
-    print(f"arch={cfg.arch_id} params={count_params(params):,} "
-          f"device={device}")
+    if mesh is None:
+        opt_state = opt.init_state(params)
+        step = make_train_step(cfg, tcfg)
+        where = ""
+    else:
+        params, opt_state = sharded.shard_(params, cfg, mesh)
+        step = sharded.make_sharded_train_step(cfg, tcfg, mesh)
+        where = f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+    log(f"arch={cfg.arch_id} params={count_params(params):,} "
+        f"device={device}{where}")
 
     data = SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch))
@@ -108,21 +140,24 @@ def main(argv=None) -> None:
             ckpt.restore(args.ckpt_dir, last,
                          {"params": params, "opt_state": opt_state})
             start = last
-            print(f"resumed from step {start}")
+            log(f"resumed from step {start}")
 
     loop = ResilientLoop(
         step_fn=step, batch_fn=batch_fn, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, watchdog=StepWatchdog())
     t0 = time.time()
     params, opt_state, info = loop.run(
-        params, opt_state, start, args.steps, log_every=args.log_every)
+        params, opt_state, start, args.steps, log_every=args.log_every,
+        log_fn=log)
     dt = time.time() - t0
-    print(f"done: {info['final_step'] - start} steps in {dt:.1f}s "
-          f"({dt / max(info['final_step'] - start, 1):.2f} s/step), "
-          f"restores={info['restores']}, "
-          f"median_step={loop.watchdog.median:.3f}s")
+    log(f"done: {info['final_step'] - start} steps in {dt:.1f}s "
+        f"({dt / max(info['final_step'] - start, 1):.2f} s/step), "
+        f"restores={info['restores']}, "
+        f"median_step={loop.watchdog.median:.3f}s")
     final = {k: float(v) for k, v in (info["metrics"] or {}).items()}
-    print("final metrics:", final)
+    log("final metrics:", final)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -24,7 +24,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.common import dense_init, frozen_param, rms_norm, rope
+from repro_torch.models.common import (
+    EMBED, HEAD_DIM, HEADS, KV_HEADS, dense_init, frozen_param, rms_norm, rope,
+)
 
 NEG_INF = -1e30
 _Q_CHUNK = 256
@@ -101,6 +103,19 @@ def gqa_init(generator: torch.Generator, cfg, dtype, device=None) -> GQAAttentio
         dense_init(generator, d, (hk, hd), dtype, device=device),
         dense_init(generator, d, (hk, hd), dtype, device=device),
         dense_init(generator, h * hd, d, dtype, device=device), **norms)
+
+
+def gqa_specs(cfg):
+    s = {
+        "wq": (EMBED, HEADS, None),
+        "wk": (EMBED, KV_HEADS, None),
+        "wv": (EMBED, KV_HEADS, None),
+        "wo": (HEADS, EMBED),  # fused (h*hd) input dim — sharded like heads
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = (HEAD_DIM,)
+        s["k_norm"] = (HEAD_DIM,)
+    return s
 
 
 def heads(x, w, n_heads: int, head_dim: int):
@@ -257,6 +272,20 @@ def mla_init(generator, cfg, dtype, device=None) -> MLAAttention:
     return MLAAttention(dense(d, ql), ones(ql), dense(ql, (h, dn + dr)),
                         dense(d, kl), ones(kl), dense(kl, (h, dn)),
                         dense(kl, (h, dv)), dense(d, dr), dense(h * dv, d))
+
+
+def mla_specs(cfg):
+    return {
+        "wdq": (EMBED, "q_lora"),
+        "q_norm": ("q_lora",),
+        "wuq": ("q_lora", HEADS, None),
+        "wdkv": (EMBED, "kv_lora"),
+        "kv_norm": ("kv_lora",),
+        "wuk": ("kv_lora", HEADS, None),
+        "wuv": ("kv_lora", HEADS, None),
+        "wkr": (EMBED, None),
+        "wo": (HEADS, EMBED),
+    }
 
 
 def mla_apply(p: MLAAttention, cfg, x, *, positions=None, cache=None,

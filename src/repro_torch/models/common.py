@@ -3,9 +3,13 @@
 Weights keep the reference's layouts: a projection is (in, *out), applied as
 ``x @ w`` over the flattened out dims.  Inits draw from an explicit
 ``torch.Generator``; they give the reference's distributions, not
-``jax.random``'s numbers.  The logical-axis names and ``prepend_layers_axis``
-are sharding plumbing and wait for sharded training (ROADMAP queue 1
-item 9b).
+``jax.random``'s numbers.
+
+Logical-axis spec trees (the reference's ``models/common.py``): nested dicts
+mirroring the reference's parameter trees, each leaf a tuple of logical axis
+names per dim, which ``distribution/sharding.py`` resolves onto mesh axes.
+``jax_path`` names the reference leaf (and the slice of its stacked axes)
+that one port parameter is.
 """
 from __future__ import annotations
 
@@ -14,6 +18,20 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+# Logical axis names (mapped to mesh axes by distribution/sharding.py)
+BATCH = "batch"
+SEQ = "seq"
+EMBED = "embed"          # d_model — FSDP-sharded on weights
+FFN = "ffn"              # hidden ffn dim — TP-sharded
+HEADS = "heads"          # q heads — TP-sharded
+KV_HEADS = "kv_heads"    # kv heads — replicated when < TP degree
+HEAD_DIM = "head_dim"
+VOCAB = "vocab"          # TP-sharded
+EXPERTS = "experts"      # EP-sharded
+LAYERS = "layers"        # scan axis — never sharded
+STATE = "state"          # ssm state dim
+CAP = "capacity"
 
 
 def frozen_param(t: torch.Tensor) -> nn.Parameter:
@@ -28,6 +46,32 @@ class SwiGLU(nn.Module):
         super().__init__()
         self.gate, self.up, self.down = (frozen_param(w)
                                          for w in (gate, up, down))
+
+
+def mlp_specs():
+    return {"gate": (EMBED, FFN), "up": (EMBED, FFN), "down": (FFN, EMBED)}
+
+
+def prepend_layers_axis(spec_tree):
+    """Add the scan ``layers`` axis in front of every leaf spec."""
+    if isinstance(spec_tree, tuple):
+        return (LAYERS, *spec_tree)
+    return {k: prepend_layers_axis(v) for k, v in spec_tree.items()}
+
+
+def jax_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """A port parameter name -> (the reference leaf's key path, the index of
+    this parameter's slice along its stacked axes).  ``layers.3.attn.wq`` ->
+    (``layers/attn/wq``, (3,)); ``groups.1.self_layers.2.ln1`` ->
+    (``groups/self/ln1``, (1, 2)); ``shared.attn.wq`` -> (``shared/attn/wq``,
+    ())."""
+    keys, ix = [], []
+    for part in name.split("."):
+        if part.isdigit():
+            ix.append(int(part))
+        else:
+            keys.append("self" if part == "self_layers" else part)
+    return tuple(keys), tuple(ix)
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dims,

@@ -29,7 +29,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.common import SwiGLU
+from repro_torch.models.common import SwiGLU, jax_path
 from repro_torch.models import transformer as T
 
 
@@ -51,28 +51,15 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def jax_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
-    """A port parameter name -> (the reference leaf's key path, the index of
-    this parameter's slice along its stacked axes).  ``layers.3.attn.wq`` ->
-    (``layers/attn/wq``, (3,)); ``groups.1.self_layers.2.ln1`` ->
-    (``groups/self/ln1``, (1, 2)); ``shared.attn.wq`` -> (``shared/attn/wq``,
-    ())."""
-    keys, ix = [], []
-    for part in name.split("."):
-        if part.isdigit():
-            ix.append(int(part))
-        else:
-            keys.append("self" if part == "self_layers" else part)
-    return tuple(keys), tuple(ix)
-
-
 def to_jax_tree(named: dict) -> dict:
-    """{port parameter name: tensor} -> the reference's nested dict, each
-    layer's slices stacked on the leading axes; numpy leaves."""
+    """{port parameter name: tensor or numpy array} -> the reference's
+    nested dict, each layer's slices stacked on the leading axes; numpy
+    leaves."""
     slices: dict = {}
     for name, t in named.items():
         keys, ix = jax_path(name)
-        slices.setdefault(keys, []).append((ix, to_numpy(t)))
+        a = t if isinstance(t, np.ndarray) else to_numpy(t)
+        slices.setdefault(keys, []).append((ix, a))
     tree: dict = {}
     for keys, parts in slices.items():
         if parts[0][0] == ():

@@ -17,7 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import dense_init, frozen_param, rms_norm
+from repro_torch.models.common import (
+    EMBED, FFN, HEADS, dense_init, frozen_param, rms_norm,
+)
 
 MAMBA2_NAMES = ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip",
                 "norm", "out_proj")
@@ -54,6 +56,16 @@ def mamba2_init(generator: torch.Generator, cfg, dtype, device=None) -> Mamba2:
         a_log=f32(torch.log(torch.linspace(1.0, 16.0, h))),
         dt_bias=f32(torch.zeros(h)), d_skip=f32(torch.ones(h)),
         norm=torch.ones(di, dtype=dtype, device=device), out_proj=out_proj)
+
+
+def mamba2_specs(cfg):
+    return {
+        "in_proj": (EMBED, FFN),
+        "conv_w": ("conv", FFN), "conv_b": (FFN,),
+        "a_log": (HEADS,), "dt_bias": (HEADS,), "d_skip": (HEADS,),
+        "norm": (FFN,),
+        "out_proj": (FFN, EMBED),
+    }
 
 
 def _split_proj(cfg, zxbcdt):

@@ -14,9 +14,18 @@ Dispatch keeps tensors at (E, C, d), never (tokens, E, C):
 capacity, sort and buffer.  The global dispatch is the grouped one at G = 1
 (same capacity, sort, drops and aux), so one batched body computes both.
 ``"a2a"`` is the reference's all-to-all expert parallelism over a mesh's
-``model`` axis (``shard_map``); without a mesh it falls through to the global
-or grouped dispatch, and so it does here: the mesh path waits for sharded
-training (ROADMAP queue 1 item 9b).
+``model`` axis (``moe_apply_a2a``); without a mesh, on a ``model`` axis of 1,
+or where the tokens or experts do not split, it falls through to the global
+or grouped dispatch, as the reference's does.
+
+Under ``use_sharding`` (the sharded train step) ``x`` holds this rank's rows
+of the batch: the rows of its data coordinate, the same on every rank of its
+``model`` group.  The global and grouped dispatch then all-gather the data
+shards' tokens first and route the whole batch, as the reference's global
+arrays are routed under GSPMD (the same capacities, drops and aux), and keep
+this rank's rows of the output; the all-gather's backward sums the
+cotangents over the data ranks, so each rank's gradient carries the aux term
+of the whole batch, which the step's average over data leaves once.
 
 How the port differs from the reference's jnp, on purpose:
   * the buffer is filled by a gather (each slot reads the token the sort put
@@ -36,12 +45,22 @@ for checks that compare passes; nothing is recorded outside it.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import SwiGLU, dense_init, frozen_param, swiglu
+from repro_torch.distribution.sharding import current_ctx, mesh_shape
+from repro_torch.models.common import (
+    EMBED, EXPERTS, FFN, SwiGLU, dense_init, frozen_param, mlp_specs, swiglu,
+)
+
+#: the reference's data axes, major first, and its expert-parallel axis
+DATA_AXES = ("pod", "data")
+MODEL_AXIS = "model"
 
 _RECORDERS: list[list] = []
 
@@ -71,6 +90,18 @@ def moe_init(generator: torch.Generator, cfg, dtype, device=None) -> MoE:
         fs = f * cfg.n_shared_experts
         shared = SwiGLU(dense(d, fs), dense(d, fs), dense(fs, d))
     return MoE(router, gate, up, down, shared)
+
+
+def moe_specs(cfg):
+    s = {
+        "router": (EMBED, EXPERTS),
+        "gate": (EMBED, EXPERTS, FFN),
+        "up": (EMBED, EXPERTS, FFN),
+        "down": (FFN, EXPERTS, EMBED),
+    }
+    if cfg.n_shared_experts:
+        s["shared"] = mlp_specs()
+    return s
 
 
 def capacity_for(n_tokens: int, cfg) -> int:
@@ -125,10 +156,11 @@ def _route(p: MoE, cfg, toks):
             "slot": slot, "keep": slot < e * cap}
 
 
-def _experts(p: MoE, buf):
+def _experts(gate, up, down, buf):
     """buf (E, R, d) -> (E, R, d): per expert silu(x@gate)·(x@up) @ down.
-    The weights are read in place as (E, d, f) / (E, f, d) strided views."""
-    gate, up, down = (w.transpose(0, 1) for w in (p.gate, p.up, p.down))
+    The weights gate / up (d, E, f) and down (f, E, d) are read in place as
+    (E, d, f) / (E, f, d) strided views."""
+    gate, up, down = (w.transpose(0, 1) for w in (gate, up, down))
     return torch.bmm(F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up), down)
 
 
@@ -157,7 +189,7 @@ def _moe_apply_grouped(p: MoE, cfg, x, groups: int, with_aux: bool):
     buf = torch.where(filled.reshape(groups, e * cap, 1), toks[gi, tok], 0)
     buf = buf.reshape(groups, e, cap, d).transpose(0, 1) \
         .reshape(e, groups * cap, d)
-    out_e = _experts(p, buf)                                 # (E, G·C, d)
+    out_e = _experts(p.gate, p.up, p.down, buf)             # (E, G·C, d)
 
     # the combine: each token's k outputs, weighted, summed over k
     slot, keep = r["slot"], r["keep"]
@@ -180,9 +212,217 @@ def _moe_apply_grouped(p: MoE, cfg, x, groups: int, with_aux: bool):
 def moe_apply(p: MoE, cfg, x, with_aux: bool = False):
     """x: (B, S, d) -> (B, S, d)  [or (out, aux_loss) with with_aux].
 
-    Grouped dispatch (G = ``cfg.moe_groups``) when ``moe_groups > 1`` or
-    ``moe_impl == "grouped"``; global (G = 1) otherwise, ``"a2a"`` included
-    (no mesh: the reference's fall-through)."""
+    ``moe_impl == "a2a"`` under a mesh whose ``model`` axis is larger than 1
+    runs ``moe_apply_a2a`` when the batch's tokens split over every rank and
+    the experts over ``model`` (the reference's condition, ``moe.py:75-88``;
+    decode steps have too few tokens).  Otherwise grouped dispatch
+    (G = ``cfg.moe_groups``) when ``moe_groups > 1`` or ``moe_impl ==
+    "grouped"``, global (G = 1) else."""
+    ctx = current_ctx()
+    sizes = mesh_shape(ctx.mesh) if ctx is not None else {}
+    dsh = math.prod(sizes.get(a, 1) for a in DATA_AXES)
+    if cfg.moe_impl == "a2a" and sizes.get(MODEL_AXIS, 1) > 1:
+        # x holds one data shard's rows: the batch has dsh times its tokens
+        n = x.shape[0] * x.shape[1] * dsh
+        if (n % math.prod(sizes.values()) == 0
+                and cfg.n_experts % sizes[MODEL_AXIS] == 0):
+            return moe_apply_a2a(p, cfg, x, ctx.mesh, with_aux)
     grouped = cfg.moe_groups > 1 or cfg.moe_impl == "grouped"
-    return _moe_apply_grouped(p, cfg, x, cfg.moe_groups if grouped else 1,
-                              with_aux)
+    groups = cfg.moe_groups if grouped else 1
+    if dsh == 1:
+        return _moe_apply_grouped(p, cfg, x, groups, with_aux)
+    # route the whole batch: gather the data shards' rows (major axis last,
+    # so pod-major row order), keep this rank's rows of the output
+    whole = x
+    for a in reversed(DATA_AXES):
+        if a in sizes:
+            whole = funcol.all_gather_tensor_autograd(
+                whole, 0, ctx.mesh.get_group(a))
+    out = _moe_apply_grouped(p, cfg, whole, groups, with_aux)
+    row = 0
+    for a in DATA_AXES:
+        if a in sizes:
+            row = row * sizes[a] + ctx.mesh.get_local_rank(a)
+    b = x.shape[0]
+    if with_aux:
+        return out[0][row * b:(row + 1) * b], out[1]
+    return out[row * b:(row + 1) * b]
+
+
+# ---------------------------------------------------------------------------
+# Explicit all-to-all expert parallelism — the reference's shard_map body
+# ---------------------------------------------------------------------------
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Forward: the identity on a tensor every rank of ``group`` holds
+    whole; backward: the sum of the ranks' gradients (``shard_map``'s psum
+    of an input replicated over an axis)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Forward: the identity; backward: the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class _MeanOverMesh(torch.autograd.Function):
+    """Forward: the mean of a 0-d tensor over ``model`` and then each data
+    axis (the reference's pmeans); backward: the gradient over the ``model``
+    size.  Every rank's loss carries the same mean; the router's gradient is
+    summed over ``model`` (``_CopyToGroup``) and the step averages over data,
+    so each rank's own term takes 1/model of the cotangent: the reference's
+    1/(all ranks) once the data average is taken."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.n_model = mesh_shape(mesh)[axes[0]]
+        out = x.detach().clone()
+        for a in axes:
+            dist.all_reduce(out, group=mesh.get_group(a))
+            out /= mesh_shape(mesh)[a]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n_model, None, None
+
+
+def _local_sort_dispatch(ids, n_buckets: int, cap: int):
+    """Sort rows by bucket id; returns (slot, keep) with slot = b*cap+pos,
+    ``n_buckets * cap`` where dropped.
+
+    Pure index math on one shard (no cross-device semantics)."""
+    order = torch.argsort(ids, stable=True)
+    sorted_ids = ids[order]
+    counts = torch.bincount(sorted_ids, minlength=n_buckets)
+    start = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(ids.shape[0], device=ids.device) - start[sorted_ids]
+    keep = pos < cap
+    slot_sorted = torch.where(keep, sorted_ids * cap + pos, n_buckets * cap)
+    # scatter back to original order
+    slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
+    keep_orig = torch.empty_like(keep).scatter_(0, order, keep)
+    return slot, keep_orig
+
+
+def _put_rows(n_rows: int, slot, rows):
+    """(n_rows, d) zeros with ``rows[i]`` at ``slot[i]``; a slot of
+    ``n_rows`` or more is dropped (jnp's ``.at[slot].set(mode="drop")``)."""
+    buf = rows.new_zeros((n_rows + 1, *rows.shape[1:]))
+    buf = buf.index_put((torch.clamp(slot, max=n_rows),), rows)
+    return buf[:n_rows]
+
+
+def moe_apply_a2a(p: MoE, cfg, x, mesh, with_aux: bool = False,
+                  data_axes=DATA_AXES, model_axis=MODEL_AXIS):
+    """DeepSeek-style EP: token shards exchange with expert shards via two
+    all-to-alls over the mesh's ``model`` axis (send: token -> expert shard;
+    return: expert outputs), instead of all-gathering every expert's
+    outputs.  The reference's ``shard_map`` body (``moe.py:259-363``) on one
+    rank of a ``DeviceMesh``.
+
+    ``x`` (b, s, d) is this rank's data shard, the same on every rank of its
+    ``model`` group; ``p`` holds every expert (the sharded step gathers the
+    weights).  Rank j of the ``model`` group (jax's ``axis_index``) routes
+    tokens [j·t_loc, (j+1)·t_loc) of the shard and runs experts [j·e_loc,
+    (j+1)·e_loc); an all-gather over ``model`` reassembles the shard's
+    output.  Gradients follow ``shard_map``'s transpose: the inputs
+    replicated over ``model`` (tokens, router, the expert slices of the whole
+    weights) sum their gradients over it, the output's cotangent is divided
+    by the ``model`` size before the all-gather's backward sums it."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    sizes = mesh_shape(mesh)
+    axes_present = tuple(a for a in data_axes if a in sizes)
+    msh = sizes[model_axis]
+    n_loc = b * s
+    if n_loc % msh or e % msh:
+        raise ValueError(f"{n_loc} tokens or {e} experts do not split over "
+                         f"a model axis of {msh}")
+    t_loc = n_loc // msh
+    e_loc = e // msh
+    cap_send = max(-(-int(t_loc * k * cfg.capacity_factor) // msh) // 8 * 8, 8)
+    cap_loc = max(-(-msh * cap_send // e_loc) // 8 * 8, 8)
+    group = mesh.get_group(model_axis)
+    j = mesh.get_local_rank(model_axis)
+
+    def mine(w, dim):   # this rank's slice of a tensor replicated over model
+        w = _CopyToGroup.apply(w, group)
+        return w.narrow(dim, j * (w.shape[dim] // msh), w.shape[dim] // msh)
+
+    xt = mine(x.reshape(n_loc, d), 0)
+    router = _CopyToGroup.apply(p.router, group)
+    gate, up, down = (mine(w, 1) for w in (p.gate, p.up, p.down))
+
+    probs = torch.softmax(xt.to(torch.float32) @ router, dim=-1)
+    top_w, top_e = torch.topk(probs, k, dim=-1)
+    if cfg.moe_renormalize:
+        top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-9)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if with_aux:
+        frac = F.one_hot(top_e, e).to(torch.float32).mean(dim=(0, 1))
+        aux = e * torch.sum(frac * probs.mean(dim=0))
+        aux = _MeanOverMesh.apply(aux, mesh, (model_axis, *axes_present))
+
+    eid = top_e.reshape(-1)                              # (t_loc*k,)
+    tid = torch.arange(t_loc, device=x.device).repeat_interleave(k)
+    wgt = top_w.reshape(-1)
+    slot, keep = _local_sort_dispatch(eid // e_loc, msh, cap_send)
+    sendx = _put_rows(msh * cap_send, slot, xt[tid])
+    # the expert within the shard and a valid flag, one int exchange
+    meta = _put_rows(msh * cap_send, slot,
+                     torch.stack([eid % e_loc, torch.ones_like(eid)], 1))
+
+    # ---- exchange tokens with expert shards ------------------------------
+    rx = funcol.all_to_all_single_autograd(sendx, None, None, group)
+    rmeta = torch.empty_like(meta)
+    dist.all_to_all_single(rmeta, meta, group=group)
+    # invalid rows -> bucket e_loc (dropped by capacity sentinel)
+    rid = torch.where(rmeta[:, 1].bool(), rmeta[:, 0], e_loc)
+    slot2, keep2 = _local_sort_dispatch(torch.clamp(rid, max=e_loc),
+                                        e_loc + 1, cap_loc)
+    drop2 = ~keep2 | (rid >= e_loc)
+    slot2 = torch.where(drop2, (e_loc + 1) * cap_loc, slot2)
+    buf = _put_rows((e_loc + 1) * cap_loc, slot2, rx)
+    buf = buf[:e_loc * cap_loc].reshape(e_loc, cap_loc, d)
+
+    # ---- local expert compute --------------------------------------------
+    oute = _experts(gate, up, down, buf)
+
+    # ---- return path -----------------------------------------------------
+    flat = oute.reshape(e_loc * cap_loc, d)
+    safe2 = torch.clamp(slot2, max=e_loc * cap_loc - 1)
+    back = torch.where(drop2[:, None], 0.0, flat[safe2])
+    backx = funcol.all_to_all_single_autograd(back, None, None, group)
+    safe1 = torch.clamp(slot, max=msh * cap_send - 1)
+    per_assign = torch.where(keep[:, None],
+                             backx[safe1] * wgt[:, None].to(x.dtype), 0.0)
+    out_loc = per_assign.reshape(t_loc, k, d).sum(dim=1)
+    # reassemble the data shard's tokens across the model axis; its
+    # cotangent is replicated over model, so it is divided by the model size
+    # before the all-gather's backward sums it (shard_map's transpose)
+    out = _ScaleGrad.apply(
+        funcol.all_gather_tensor_autograd(out_loc, 0, group), 1.0 / msh)
+    out = out.reshape(b, s, d)
+    if p.shared is not None:
+        out = out + swiglu(x, p.shared.gate, p.shared.up, p.shared.down)
+    return (out, aux) if with_aux else out

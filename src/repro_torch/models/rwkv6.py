@@ -22,7 +22,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.wkv import ops as wkv_ops
-from repro_torch.models.common import dense_init, frozen_param, rms_norm
+from repro_torch.models.common import (
+    EMBED, FFN, HEADS, dense_init, frozen_param, rms_norm,
+)
 
 TMIX_NAMES = ("mix_r", "mix_k", "mix_v", "mix_g", "mix_w", "wr", "wk", "wv",
               "wg", "wd1", "wd2", "decay_base", "bonus_u", "wo", "ln_x")
@@ -77,6 +79,18 @@ def rwkv_block_init(generator: torch.Generator, cfg, dtype,
         wo=dense(d, d),
         ln_x=full((d,), 1.0),   # per-head group norm weight
     )
+
+
+def rwkv_block_specs(cfg):
+    return {
+        "mix_r": (EMBED,), "mix_k": (EMBED,), "mix_v": (EMBED,),
+        "mix_g": (EMBED,), "mix_w": (EMBED,),
+        "wr": (EMBED, FFN), "wk": (EMBED, FFN), "wv": (EMBED, FFN),
+        "wg": (EMBED, FFN),
+        "wd1": (EMBED, None), "wd2": (None, FFN),
+        "decay_base": (None,), "bonus_u": (HEADS, None),
+        "wo": (FFN, EMBED), "ln_x": (EMBED,),
+    }
 
 
 def _token_shift(x, x_prev):
@@ -179,6 +193,13 @@ def rwkv_cmix_init(generator: torch.Generator, cfg, dtype,
         wk=dense_init(generator, d, f, dtype, device=device),
         wv=dense_init(generator, f, d, dtype, device=device),
         wr=dense_init(generator, d, d, dtype, device=device))
+
+
+def rwkv_cmix_specs(cfg):
+    return {
+        "mix_k": (EMBED,), "mix_r": (EMBED,),
+        "wk": (EMBED, FFN), "wv": (FFN, EMBED), "wr": (EMBED, None),
+    }
 
 
 def rwkv_cmix_apply(p: RWKVChannelMix, cfg, x, x_prev):

@@ -8,7 +8,8 @@ every ``hybrid_attn_every`` layers, with a KV cache per invocation) and
 ``audio`` (whisper: a bidirectional encoder over stub frame embeddings, a
 causal decoder with cross-attention).
 
-The public API mirrors the reference's: ``init_params`` / ``forward``
+The public API mirrors the reference's: ``init_params`` / ``param_specs`` /
+``forward``
 (teacher-forced logits; ``with_aux`` adds the MoE load-balancing loss) /
 ``init_cache`` / ``prefill`` / ``decode_step``.  Parameters are a
 ``DenseLM`` (dense, moe), ``VisionLM``, ``RWKVLM``, ``HybridLM`` or
@@ -29,7 +30,9 @@ gradient run under ``torch.inference_mode()``.  A pass that asks for one
 recomputes each layer in the backward by ``cfg.remat_policy`` (``_remat``:
 ``"full"`` keeps only the layer boundaries, ``"dots"`` also the weight
 products' outputs, ``"none"`` everything), as the reference's
-``jax.checkpoint`` does.
+``jax.checkpoint`` does.  ``param_specs`` is the reference's logical-axis
+tree, stacked axes included; ``param_axes`` gives each port parameter its
+own axes (the tree's leaf at ``jax_path(name)`` without the stacked ones).
 """
 from __future__ import annotations
 
@@ -44,8 +47,8 @@ from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.common import (
-    SwiGLU, dense_init, embed_init, frozen_param, gelu_mlp, layer_norm,
-    rms_norm, swiglu,
+    EMBED, FFN, VOCAB, SwiGLU, dense_init, embed_init, frozen_param, gelu_mlp,
+    jax_path, layer_norm, mlp_specs, prepend_layers_axis, rms_norm, swiglu,
 )
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
@@ -610,6 +613,129 @@ def _stack(params, cfg, x, *, positions=None, caches=None, extra=None):
         return _vlm_stack(params, cfg, x, positions=positions, caches=caches,
                           cross_states=extra)
     return _decoder_stack(params, cfg, x, positions=positions, caches=caches)
+
+
+# ===========================================================================
+# Logical-axis specs (the reference's ``param_specs`` and its helpers)
+# ===========================================================================
+
+
+def _gelu_mlp_specs():
+    return {"up": (EMBED, FFN), "down": (FFN, EMBED)}
+
+
+def _attn_specs(cfg):
+    return (attn.mla_specs(cfg) if cfg.attention_type == "mla"
+            else attn.gqa_specs(cfg))
+
+
+def _layer_specs(cfg, cross: bool = False):
+    s = {
+        "ln1": (EMBED,), "ln2": (EMBED,),
+        "attn": attn.gqa_specs(cfg) if cross else _attn_specs(cfg),
+    }
+    if cfg.family == "moe" and not cross:
+        s["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs()
+    if cross:
+        s["xattn_gate"] = ()
+    return s
+
+
+def _rwkv_layer_specs(cfg):
+    return {
+        "ln1": (EMBED,), "ln2": (EMBED,),
+        "tmix": rwkv.rwkv_block_specs(cfg),
+        "cmix": rwkv.rwkv_cmix_specs(cfg),
+    }
+
+
+def _zamba_shared_specs(cfg):
+    return {
+        "ln1": (EMBED,), "ln2": (EMBED,),
+        "attn": attn.gqa_specs(cfg),
+        "mlp": mlp_specs(),
+    }
+
+
+def _whisper_enc_layer_specs(cfg):
+    return {
+        "ln1_w": (EMBED,), "ln1_b": (EMBED,),
+        "ln2_w": (EMBED,), "ln2_b": (EMBED,),
+        "attn": attn.gqa_specs(cfg),
+        "mlp": _gelu_mlp_specs(),
+    }
+
+
+def _whisper_dec_layer_specs(cfg):
+    return {
+        "ln1_w": (EMBED,), "ln1_b": (EMBED,),
+        "lnx_w": (EMBED,), "lnx_b": (EMBED,),
+        "ln2_w": (EMBED,), "ln2_b": (EMBED,),
+        "attn": attn.gqa_specs(cfg),
+        "xattn": attn.gqa_specs(cfg),
+        "mlp": _gelu_mlp_specs(),
+    }
+
+
+def param_specs(cfg) -> dict:
+    """The reference's logical-axis tree: one tuple of axis names per leaf
+    of its (stacked) parameter tree."""
+    require_ported(cfg)
+    if cfg.family in ("dense", "moe", "vlm"):
+        specs = {"embed": (VOCAB, EMBED), "final_norm": (EMBED,)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = (EMBED, VOCAB)
+        if cfg.family == "vlm":
+            specs["groups"] = prepend_layers_axis({
+                "self": prepend_layers_axis(_layer_specs(cfg)),
+                "cross": _layer_specs(cfg, cross=True),
+            })
+        else:
+            specs["layers"] = prepend_layers_axis(_layer_specs(cfg))
+        return specs
+    if cfg.family == "ssm":
+        return {
+            "embed": (VOCAB, EMBED), "final_norm": (EMBED,),
+            "lm_head": (EMBED, VOCAB),
+            "layers": prepend_layers_axis(_rwkv_layer_specs(cfg)),
+        }
+    if cfg.family == "hybrid":
+        return {
+            "embed": (VOCAB, EMBED), "final_norm": (EMBED,),
+            "lm_head": (EMBED, VOCAB),
+            "layers": prepend_layers_axis(
+                {"ln": (EMBED,), "mamba": m2.mamba2_specs(cfg)}),
+            "shared": _zamba_shared_specs(cfg),
+        }
+    return {   # audio
+        "embed": (VOCAB, EMBED),
+        "enc_pos": ("frames", EMBED), "dec_pos": (None, EMBED),
+        "enc_layers": prepend_layers_axis(_whisper_enc_layer_specs(cfg)),
+        "dec_layers": prepend_layers_axis(_whisper_dec_layer_specs(cfg)),
+        "enc_norm_w": (EMBED,), "enc_norm_b": (EMBED,),
+        "final_norm": (EMBED,), "final_norm_b": (EMBED,),
+        "lm_head": (EMBED, VOCAB),
+    }
+
+
+def param_axes(params, cfg) -> dict:
+    """{parameter name: its logical axes} for a model (or an iterable of
+    its parameter names): ``param_specs``'s leaf at ``jax_path(name)``
+    without the stacked leading axes (one per layer index in the name; two
+    in vlm's ``groups.self``)."""
+    names = (dict(params.named_parameters()) if hasattr(
+        params, "named_parameters") else params)
+    specs = param_specs(cfg)
+    out = {}
+    for name in names:
+        keys, ix = jax_path(name)
+        node = specs
+        for k in keys:
+            node = node[k]
+        out[name] = node[len(ix):]
+    return out
 
 
 # ===========================================================================

@@ -7,10 +7,10 @@ one host:
     step exceeds ``threshold x`` the trailing median.
   * ``ResilientLoop`` — run steps, checkpoint every N, on failure restore
     the latest complete checkpoint and continue (with an injectable failure
-    hook used by the tests).
-
-``elastic_restore`` (onto a different mesh) waits for ROADMAP queue 1 item
-9b.
+    hook used by the tests).  Under a mesh every rank runs the loop: a
+    failure that every rank raises at the same step restores the latest
+    checkpoint on every rank, each into its own shards.
+  * ``elastic_restore`` — restore onto a different (survivor) mesh.
 """
 from __future__ import annotations
 
@@ -110,5 +110,6 @@ class ResilientLoop:
 
 
 def elastic_restore(ckpt_dir: str, step: int, template, target_shardings):
-    """Restore a checkpoint onto a different (survivor) mesh topology."""
-    raise NotImplementedError(ckpt.UNPORTED_RESHARD)
+    """Restore a checkpoint onto a different (survivor) mesh topology:
+    ``target_shardings`` is ``train/sharded.py``'s ``layout`` on it."""
+    return ckpt.restore(ckpt_dir, step, template, shardings=target_shardings)

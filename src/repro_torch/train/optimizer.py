@@ -9,10 +9,12 @@ over a leading layer axis, so it also decays the per-layer norm scales; this
 package does not.)
 
 State: ``{"step": 0-d int32, "m": {name: fp32}, "v": {name: fp32}}``, keyed
-by the model's parameter names.  ``apply_updates`` updates the parameters
-and the state in place with in-place ``torch._foreach_*`` ops over groups
-of tensors of at most ``_GROUP_BYTES``: the fp32 temporaries (the scaled
-gradient, the denominator, the step) stay bounded.
+by the model's parameter names; ``state_specs`` gives its logical axes (the
+parameters').  ``apply_updates`` updates the parameters and the state in
+place with in-place ``torch._foreach_*`` ops over groups of tensors of at
+most ``_GROUP_BYTES``: the fp32 temporaries (the scaled gradient, the
+denominator, the step) stay bounded.  ``update_`` is its elementwise part
+given the clipping norm, which the sharded step runs on each rank's shards.
 """
 from __future__ import annotations
 
@@ -64,6 +66,15 @@ def init_state(model) -> dict:
             "m": zeros(), "v": zeros()}
 
 
+def state_specs(param_spec_tree):
+    """Logical-axis specs for the optimizer state (same sharding as params)."""
+    return {
+        "step": (),
+        "m": param_spec_tree,
+        "v": param_spec_tree,
+    }
+
+
 def decays(p: torch.Tensor) -> bool:
     """Whether AdamW decays this parameter: a matrix (two or more dims)."""
     return p.ndim >= 2
@@ -94,8 +105,16 @@ def apply_updates(model, grads: dict, state: dict, cfg: OptimizerConfig
     """One AdamW step on ``model``'s parameters from ``grads`` (name ->
     gradient, in any float dtype), in place; ``state`` advances in place.
     Returns ``{"grad_norm", "lr"}`` as 0-d fp32 tensors (no host sync)."""
-    named = dict(model.named_parameters())
-    gnorm = global_norm(grads)
+    return update_(dict(model.named_parameters()), grads, state, cfg,
+                   global_norm(grads))
+
+
+@torch.no_grad()
+def update_(named: dict, grads: dict, state: dict, cfg: OptimizerConfig,
+            gnorm: torch.Tensor) -> dict:
+    """``apply_updates`` on the tensors of ``named`` (name -> parameter),
+    clipped by ``gnorm``: elementwise, so a shard of every tensor (with the
+    same shard of its gradient and moments) takes its part of the step."""
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, state["step"])
     state["step"] += 1

@@ -6,8 +6,10 @@ loss, 0 for the other families).  ``make_train_step`` differentiates it
 with autograd, accumulates microbatches (slices of the batch's leading dim)
 in fp32 and applies AdamW (``train/optimizer.py``), as the reference's
 ``make_train_step`` does on one device.  Each layer is recomputed in the
-backward by ``cfg.remat_policy`` (``models/transformer.py``).  The int8
-cross-pod gradient compression waits for ROADMAP queue 1 item 9b.
+backward by ``cfg.remat_policy`` (``models/transformer.py``).
+``grad_compression`` is accepted and changes nothing: the reference declares
+it and its step never reads it (ROADMAP queue 3); ``train/sharded.py`` runs
+this step over a mesh.
 """
 from __future__ import annotations
 
@@ -18,11 +20,6 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as opt
 
-UNPORTED_GRAD_COMPRESSION = (
-    "grad_compression (the int8 cross-pod all-reduce) is not ported yet: "
-    "ROADMAP queue 1 item 9b (sharded training)")
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     optimizer: opt.OptimizerConfig = dataclasses.field(
@@ -30,7 +27,7 @@ class TrainConfig:
     microbatches: int = 1
     z_loss_coef: float = 1e-4
     moe_aux_coef: float = 1e-2
-    grad_compression: bool = False   # int8 cross-pod all-reduce
+    grad_compression: bool = False   # int8 cross-pod all-reduce (unread)
 
 
 def lm_loss(params, cfg, batch, z_loss_coef=1e-4, moe_aux_coef=1e-2):
@@ -56,17 +53,14 @@ def lm_loss(params, cfg, batch, z_loss_coef=1e-4, moe_aux_coef=1e-2):
     return total, {"ce": ce, "z_loss": zl, "moe_aux": aux}
 
 
-def make_train_step(cfg, tcfg: TrainConfig):
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics): ``params`` (the model) and ``opt_state`` are updated in place
-    and returned; metrics are 0-d fp32 tensors ``loss``, ``ce``, ``z_loss``,
-    ``moe_aux``, ``grad_norm`` and ``lr``.
+def make_grads_fn(cfg, tcfg: TrainConfig, local=None):
+    """Returns grads_of(params, batch) -> (loss, metrics, {name: gradient}).
 
-    The batch's leading dim is split into ``microbatches`` slices; their
+    The batch's leading dim is split into ``tcfg.microbatches`` slices; their
     gradients are summed in fp32 and averaged.  With one microbatch the
-    gradients keep the parameters' dtype, as the reference's do."""
-    if tcfg.grad_compression:
-        raise NotImplementedError(UNPORTED_GRAD_COMPRESSION)
+    gradients keep the parameters' dtype, as the reference's do.  ``local``
+    maps each microbatch to the rows this process computes (the sharded
+    step's data shard); by default all of them."""
 
     def grads_of(params, batch):
         named = dict(params.named_parameters())
@@ -81,6 +75,8 @@ def make_train_step(cfg, tcfg: TrainConfig):
                        for k, v in batch.items()} for i in range(n)]
         loss_a, metrics_a, grads_a = None, None, None
         for mb in slices:
+            if local is not None:
+                mb = local(mb)
             loss, metrics = lm_loss(params, cfg, mb, tcfg.z_loss_coef,
                                     tcfg.moe_aux_coef)
             grads = torch.autograd.grad(loss, list(named.values()))
@@ -100,6 +96,17 @@ def make_train_step(cfg, tcfg: TrainConfig):
         torch._foreach_mul_(grads_a, inv)
         return (loss_a * inv, {k: v * inv for k, v in metrics_a.items()},
                 dict(zip(named, grads_a)))
+
+    return grads_of
+
+
+def make_train_step(cfg, tcfg: TrainConfig):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): ``params`` (the model) and ``opt_state`` are updated in place
+    and returned; metrics are 0-d fp32 tensors ``loss``, ``ce``, ``z_loss``,
+    ``moe_aux``, ``grad_norm`` and ``lr``.  Gradients as ``make_grads_fn``
+    gives them."""
+    grads_of = make_grads_fn(cfg, tcfg)
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = grads_of(params, batch)
