@@ -7,6 +7,7 @@
     python3 chip_smoke.py --train-probe    # device, build, train_probe
     python3 chip_smoke.py --sharded-train  # device, build, train_entry,
                                            # sharded_train
+    python3 chip_smoke.py --dryrun-only    # device, build, dryrun_arch
 
 Phases, each printing one JSON line:
 
@@ -84,6 +85,18 @@ Phases, each printing one JSON line:
                attn_block 64 (the simt route); every kernel forward's logits
                held against xla, mapped against BB; 32 sm90 launches per
                block-128 kernel forward
+  xla_mapped   the same weights and tokens under attn_impl="xla_mapped"
+               (the mapped block-pair attention in plain torch): forward
+               and lm_loss against xla and pallas_mapped with lm_forward's
+               logit, CE and top-1 gates, wall s and peak of each; one
+               layer's gradients of x and wq, wk, wv, wo in fp32 against
+               xla's (XLA_MAPPED_GRAD_RTOL)
+  trace_split  launch.hlo_analysis.analyze on a torch.profiler trace of a
+               kernel forward (1, 4096; 32 ta_sm90_kernel events) and of
+               one decode step at batch 4 after a 512-token prefill: the
+               device's busy share, time by category (own kernels, library
+               products, other kernels, NCCL, copies), launches per kernel
+               name, the three longest idle gaps with their host ops
   lm_generate  engine.generate at full width, batch 4, prompt 512, 32 greedy
                tokens; prefill and decode_step held against forward; then
                the LM demo entry point (repro_torch.launch.serve --arch yi-6b)
@@ -218,6 +231,14 @@ Phases, each printing one JSON line:
                final metrics within 1e-5 relative of train_entry's.  One
                card, so every collective is a 1-rank one; multi-rank
                numerics are held on the CPU (tests/test_torch_distributed.py)
+  dryrun_arch  python -m repro_torch.launch.dryrun --arch yi-6b --shape
+               train_4k --multi-pod both and --arch deepseek-v2-236b
+               --shape decode_32k --multi-pod off as subprocesses, side by
+               side, into build/dryrun (fake tensors on a fake 256/512-rank
+               group): exit 0, each record's analytic equal to
+               cell_analytics, FLOPs per device > 0, launch.roofline's
+               load_rows and render_markdown over them, each cell's
+               seconds; --all only if those cells say it takes under 60 s
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
@@ -340,6 +361,11 @@ TOP1_MIN = 0.95
 #: carry that to the logits.  Bound: max |Δ logit| <= 5e-2 · max |logit|.
 LOGIT_RTOL = 5e-2
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
+#: xla_mapped against xla, one yi-6b layer in fp32 (TF32 off): the same
+#: softmax summed over the block pairs in another order, so the gradients
+#: of x and of the attention's weights agree to fp32 rounding; the gate is
+#: max |Δ| over the gradient's max
+XLA_MAPPED_GRAD_RTOL = 1e-4
 #: tests/test_kernels_wkv.py's cases as (B·H, S, D, chunk), then the LM
 #: path's shapes: rwkv6-3b's 40 heads at S = 4096 (forward) and at batch 4,
 #: S = 512 (generate's prefill).  fp32 o and state are held to that test's
@@ -2267,6 +2293,296 @@ class Smoke:
               for x in (out, xla_logits)]
         del out
         return rel, abs(ce[0] - ce[1]) / ce[1]
+
+    # -- launch and analysis tooling (queue 1 item 10) -----------------------
+    def _lm_model(self):
+        """yi-6b at full width: lm_forward's weights, or the same made anew
+        (the short runs)."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+
+        if getattr(self, "lm_params", None) is None:
+            self.lm_params = T.init_params(
+                get_config(LM_ARCH),
+                torch.Generator(device="cuda").manual_seed(0), "cuda")
+        return self.lm_params
+
+    def _lm_tokens(self, cfg, shape, seed):
+        import numpy as np
+
+        return self.torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, shape, dtype=np.int64)).cuda()
+
+    def _layer_grads(self, layer, cfg, x, g) -> list:
+        """fp32 gradients of <layer(x), g> with respect to x and the
+        attention's weights."""
+        from repro_torch.models import transformer as T
+
+        x = x.detach().requires_grad_(True)
+        ws = [layer.attn.wq, layer.attn.wk, layer.attn.wv, layer.attn.wo]
+        out, _ = T._layer_apply(layer, cfg, x)
+        return list(self.torch.autograd.grad((out * g).sum(), [x, *ws]))
+
+    def xla_mapped(self) -> None:
+        """attn_impl="xla_mapped" (the mapped block-pair batch in plain
+        torch) at yi-6b's full width, bf16, tokens (1, 4096): forward and
+        lm_loss against xla with lm_forward's gates and against the kernel
+        (pallas_mapped); wall seconds of each; one layer's gradients in
+        fp32 against xla; the peak memory of the xla_mapped forward."""
+        import copy
+
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.distribution.sharding import set_param
+        from repro_torch.models import transformer as T
+        from repro_torch.train.train_step import lm_loss
+
+        params = self._lm_model()
+        cfg = get_config(LM_ARCH)
+        tokens = self._lm_tokens(cfg, (1, LM_SEQ), 1)
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+        T.forward(params, cfg.replace(attn_impl="xla_mapped"),
+                  tokens[:, :512])                   # warm-up
+        self.sync()
+        rows, logits = {}, {}
+        for impl in ("xla_mapped", "xla", "pallas_mapped"):
+            c = cfg.replace(attn_impl=impl)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = T.forward(params, c, tokens)
+            self.sync()
+            fwd_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            t0 = time.perf_counter()
+            loss, metrics = lm_loss(params, c, batch)
+            ce = float(metrics["ce"])
+            loss_s = time.perf_counter() - t0
+            check(out.shape == (1, LM_SEQ, cfg.padded_vocab)
+                  and bool(torch.isfinite(out).all()) and math.isfinite(ce),
+                  f"{impl}: logits or CE not finite")
+            logits[impl] = out
+            rows[impl] = {"forward_s": fwd_s, "lm_loss_s": loss_s,
+                          "ce": ce, "forward_peak_gb": peak}
+        x = logits["xla"]
+        scale = float(x.abs().max())
+        rel = {w: float((logits["xla_mapped"] - logits[w]).abs().max())
+               / scale for w in ("xla", "pallas_mapped")}
+        for w, r in rel.items():
+            check(r <= FWD_LOGIT_RTOL,
+                  f"xla_mapped logits vs {w}: {r} of max |logit|")
+        ce_rel = abs(rows["xla_mapped"]["ce"] - rows["xla"]["ce"]) \
+            / abs(rows["xla"]["ce"])
+        check(ce_rel <= CE_RTOL, f"xla_mapped CE vs xla: relative {ce_rel}")
+        top1 = float((logits["xla_mapped"].argmax(-1) == x.argmax(-1))
+                     .float().mean())
+        check(top1 >= TOP1_MIN, f"xla_mapped top-1 vs xla {top1}")
+        del logits, x, out
+        torch.cuda.empty_cache()
+
+        # one layer in fp32: gradients of x and the attention's weights
+        layer = copy.deepcopy(params.layers[0])
+        for n, w in list(layer.named_parameters()):
+            set_param(layer, n, w.detach().to(torch.float32))
+            layer.get_parameter(n).requires_grad_(True)
+        c32 = cfg.replace(dtype="float32")
+        xin = params.embed[tokens].to(torch.float32)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        g = torch.randn(xin.shape, device="cuda", generator=gen)
+        want = self._layer_grads(layer, c32.replace(attn_impl="xla"), xin, g)
+        t0 = time.perf_counter()
+        got = self._layer_grads(layer, c32.replace(attn_impl="xla_mapped"),
+                                xin, g)
+        self.sync()
+        grad_s = time.perf_counter() - t0
+        names = ("x", "wq", "wk", "wv", "wo")
+        grad_rel = {n: float((a - b).abs().max()) / float(b.abs().max())
+                    for n, a, b in zip(names, got, want)}
+        for n, r in grad_rel.items():
+            check(r <= XLA_MAPPED_GRAD_RTOL,
+                  f"xla_mapped layer gradient of {n} vs xla: {r} of max")
+        del layer, got, want, xin, g
+        torch.cuda.empty_cache()
+        emit({"phase": "xla_mapped", "card": self.card, "arch": LM_ARCH,
+              "dtype": cfg.dtype, "tokens": [1, LM_SEQ], "impls": rows,
+              "logit_rel_vs": rel, "logit_rtol": FWD_LOGIT_RTOL,
+              "ce_rel_vs_xla": ce_rel, "top1_vs_xla": top1,
+              "layer_grad_rel_fp32": grad_rel,
+              "grad_rtol": XLA_MAPPED_GRAD_RTOL,
+              "layer_grad_s": grad_s,
+              "block_pairs": "T(16) = 136 padded to 144, chunk 256"})
+
+    def _traced(self, fn) -> dict:
+        """``hlo_analysis.analyze`` of one ``fn()`` under torch.profiler
+        (CPU and CUDA activity, FLOPs recorded), after one warm-up call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.launch import hlo_analysis
+
+        fn()
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        a = hlo_analysis.analyze(prof)
+        top = sorted(a["launches"].items(), key=lambda kv: -kv[1])[:12]
+        return {"wall_ms": wall, "window_ms": a["window_us"] / 1e3,
+                "device_busy_ms": a["device_busy_us"] / 1e3,
+                "busy_share": a["busy_share"], "idle_share": a["idle_share"],
+                "ms_by_category": {k: v / 1e3 for k, v in
+                                   a["time_by_category_us"].items()},
+                "own_kernels_ms": {k: v / 1e3 for k, v in
+                                   a["own_kernels_us"].items()},
+                "launches_top": top,
+                "kernel_launches": sum(a["launches"].values()),
+                "ta_sm90_kernel": a["launches"].get("ta_sm90_kernel", 0),
+                "idle_gaps": [{"dur_ms": x["dur_us"] / 1e3,
+                               "start_ms": x["start_us"] / 1e3,
+                               "host_op": x["host_op"]}
+                              for x in a["idle_gaps"]],
+                "gemm_flops": sum(v for k, v in a["flops_by_op"].items()
+                                  if k in ("aten::mm", "aten::bmm",
+                                           "aten::addmm"))}
+
+    def trace_split(self) -> None:
+        """hlo_analysis.analyze on a profiled yi-6b kernel forward (1, 4096)
+        and on one engine decode step (batch 4 after a 512-token prefill):
+        the device's busy share, time by category, launches per kernel name
+        (32 ta_sm90_kernel in the forward) and the longest idle gaps with
+        the host op running in each."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.serving.engine import greedy
+
+        params = self._lm_model()
+        cfg = get_config(LM_ARCH).replace(attn_impl="pallas_mapped")
+        tokens = self._lm_tokens(cfg, (1, LM_SEQ), 1)
+        fwd = self._traced(lambda: T.forward(params, cfg, tokens))
+        check(fwd["ta_sm90_kernel"] == LM_LAUNCHES,
+              f"{fwd['ta_sm90_kernel']} ta_sm90_kernel events in the "
+              f"forward's trace, want {LM_LAUNCHES}")
+        check(0 < fwd["busy_share"] <= 1, "forward: no device time traced")
+        dcfg = get_config(LM_ARCH).replace(max_seq=GEN_PROMPT + GEN_NEW)
+        prompts = self._lm_tokens(dcfg, (GEN_BATCH, GEN_PROMPT), 2)
+        logits, cache = T.prefill(params, dcfg, prompts)
+        tok = greedy(logits[:, -1:, :dcfg.vocab_size])
+        state = {"tok": tok, "cache": cache}
+
+        def step():
+            lg, state["cache"] = T.decode_step(params, dcfg, state["tok"],
+                                               state["cache"])
+            state["tok"] = greedy(lg[:, :, :dcfg.vocab_size])
+
+        dec = self._traced(step)
+        check(0 < dec["busy_share"] <= 1, "decode: no device time traced")
+        check(dec["ta_sm90_kernel"] == 0, "decode launched tri_attn")
+        del state, cache, logits
+        torch.cuda.empty_cache()
+        emit({"phase": "trace_split", "card": self.card, "arch": LM_ARCH,
+              "forward": {"tokens": [1, LM_SEQ], **fwd},
+              "decode_step": {"batch": GEN_BATCH, "prompt": GEN_PROMPT,
+                              **dec},
+              "note": "device time from the profiler's CUDA events; HBM "
+                      "bytes are not in a trace"})
+
+    def dryrun_arch(self) -> None:
+        """The --arch dry run as subprocesses into build/dryrun: yi-6b x
+        train_4k on both meshes and deepseek-v2-236b x decode_32k on 16x16
+        (exit 0; each record's analytic equal to cell_analytics, FLOPs per
+        device > 0; roofline.load_rows and render_markdown accept them);
+        then --all --multi-pod off if the cells measured say it would take
+        under 60 s."""
+        import os
+        import shutil
+
+        from repro_torch.configs import SHAPES, get_config
+        from repro_torch.launch import analytic, roofline
+        from repro_torch.launch.dryrun import apply_profile
+
+        out = ROOT / "build" / "dryrun"
+        shutil.rmtree(out, ignore_errors=True)
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        # the two commands side by side: each is one single-threaded
+        # process on the host's cores
+        procs = []
+        t0 = time.perf_counter()
+        for arch, shape, mp in (("yi-6b", "train_4k", "both"),
+                                ("deepseek-v2-236b", "decode_32k", "off")):
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape, "--multi-pod", mp,
+                    "--out", str(out)]
+            procs.append((argv, subprocess.Popen(
+                argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        runs = []
+        try:
+            for argv, proc in procs:
+                stdout, stderr = proc.communicate(timeout=900)
+                check(proc.returncode == 0,
+                      f"{' '.join(argv[3:])} exited {proc.returncode}: "
+                      f"{stderr[-2000:]}")
+                runs.append({"command": "python -m repro_torch.launch.dryrun "
+                             + " ".join(argv[3:-2]),
+                             "stdout": [ln for ln in stdout.splitlines()
+                                        if ln.startswith("[dryrun]")]})
+        finally:
+            for _, proc in procs:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        cells = []
+        for path in sorted(out.glob("*.json")):
+            rec = json.loads(path.read_text())
+            check(rec["status"] == "ok", f"{path.name}: {rec['status']}")
+            shape = SHAPES[rec["shape"]]
+            cfg = get_config(rec["arch"]).replace(max_seq=shape.seq_len,
+                                                  attn_impl="xla")
+            cfg, _, _ = apply_profile(cfg, shape, "baseline")
+            check(rec["analytic"] == analytic.cell_analytics(cfg, shape),
+                  f"{path.name}: analytic differs from cell_analytics")
+            st = rec["step"]
+            check(st["flops_per_device"] > 0, f"{path.name}: no FLOPs")
+            cells.append({
+                "cell": path.stem, "lower_s": rec["lower_s"],
+                "run_s": rec["run_s"],
+                "flops_per_device": st["flops_per_device"],
+                "analytic_flops_per_chip":
+                    rec["analytic"]["analytic_flops"]
+                    / math.prod(rec["mesh"].values()),
+                "collectives": {k: v for k, v in st["collectives"].items()
+                                if isinstance(v, dict) and v["count"]},
+                "comm_debug_counts": st["comm_debug_counts"],
+                "memory_gb": {k: v / 1e9 for k, v in rec["memory"].items()}})
+        check(len(cells) == 3, f"{len(cells)} records, want 3")
+        md = roofline.render_markdown(roofline.load_rows(str(out)))
+        mp_rows = roofline.load_rows(str(out), multi_pod=True)
+        check(len(mp_rows) == 1 and md.count("\n") == 3,
+              "roofline rows of the dry-run records")
+        # --all: 32 cells one after another (8 of them skipped at once)
+        estimate = sum(c["lower_s"] + c["run_s"] for c in cells) \
+            / len(cells) * 24
+        all_run = None
+        if estimate < 60:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                 "--multi-pod", "off", "--out", str(out / "all")],
+                env=env, cwd=ROOT, capture_output=True, text=True,
+                timeout=600)
+            check(proc.returncode == 0, f"--all exited {proc.returncode}")
+            all_run = time.perf_counter() - t0
+        emit({"phase": "dryrun_arch", "card": self.card, "runs": runs,
+              "wall_s": wall,
+              "cells": cells, "roofline_markdown": md,
+              "all_estimate_s": estimate, "all_s": all_run,
+              "note": "fake tensors on a fake 256/512-rank group: FLOPs, "
+                      "collectives and bytes are counts, not device times"})
 
     # -- phase 8 -------------------------------------------------------------
     def lm_generate(self) -> None:
@@ -5179,6 +5495,9 @@ def main() -> int:
         emit({"phase": "sharded_sweep", "card": smoke.card,
               **smoke.sharded_sweep()})
         return 0
+    if "--dryrun-only" in sys.argv[1:]:
+        smoke.dryrun_arch()
+        return 0
     smoke.kernels()
     smoke.paper_scale()
     smoke.evaluate()
@@ -5186,6 +5505,8 @@ def main() -> int:
     smoke.serve()
     smoke.attention()
     smoke.lm_forward()
+    smoke.xla_mapped()
+    smoke.trace_split()
     smoke.lm_generate()
     smoke.vlm_forward()
     smoke.vlm_generate()
@@ -5204,6 +5525,7 @@ def main() -> int:
     smoke.train()
     smoke.train_entry()
     smoke.sharded_train()
+    smoke.dryrun_arch()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -5,3 +5,4 @@
 ``pallas_interpret=True`` the kernel's plain version on the CPU."""
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config  # noqa: F401
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable  # noqa: F401

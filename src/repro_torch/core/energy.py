@@ -80,6 +80,12 @@ H100_BF16_FLOPS = 989e12      # spec: dense bf16 tensor-core FLOP/s
 H100_FP32_FLOPS = 67e12       # spec: fp32 FLOP/s outside the tensor cores
 H100_HBM_BW = 3.35e12         # spec: HBM3 B/s
 H100_NVLINK_BW = 900e9        # spec: NVLink 4 B/s per GPU (all links, both ways)
+# The inter-node link of one GPU: in an eight-GPU H100 node (DGX H100) each
+# GPU has its own ConnectX-7 port, InfiniBand NDR at 400 Gb/s = 50e9 B/s
+# (NVIDIA's DGX H100 data sheet).  A 16x16 mesh of 256 cards spans 32
+# nodes, and its `data` axis crosses them, so this is the collective term's
+# rate.
+H100_IB_NDR_BW = 50e9         # spec: B/s per GPU across nodes
 H100_POWER_W = 700.0          # spec: SXM board power limit, W
 
 

@@ -9,7 +9,9 @@ The causal score space is the paper's 2D lower-triangular domain;
   * "xla"           — the plain chunked torch attention (``_sdpa``),
   * "pallas_mapped" — the CUDA tri_attn kernel, mapped λ grid (paper),
   * "pallas_bb"     — the CUDA tri_attn kernel, bounding-box grid
-                      (paper baseline).
+                      (paper baseline),
+  * "xla_mapped"    — the mapped block-pair batch in plain torch
+                      (``_sdpa_mapped_causal``; the reference's is plain XLA).
 The kernel is reached only by a cache-less causal GQA pass (``forward``):
 MLA (q·k over dn + dr = 192, v 128 wide), prefill, decode and
 cross-attention (``cross_kv``: k and v projected from
@@ -21,6 +23,9 @@ dict's ``idx`` is a Python int.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -30,11 +35,6 @@ from repro_torch.models.common import (
 
 NEG_INF = -1e30
 _Q_CHUNK = 256
-
-UNPORTED_XLA_MAPPED = ("attn_impl='xla_mapped' (the dry-run's mapped XLA "
-                       "attention) is not ported yet: ROADMAP queue 1 item 10 "
-                       "(launch and analysis tooling)")
-
 
 def _sdpa(q, k, v, n_kv_heads: int, q_pos=None, chunk: int = _Q_CHUNK,
           logit_dim: int | None = None):
@@ -71,8 +71,79 @@ def _sdpa(q, k, v, n_kv_heads: int, q_pos=None, chunk: int = _Q_CHUNK,
         for c in range(0, s, chunk)], dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _pair_tables(nb: int, chunk: int):
+    """The static λ -> (i, j) tables of the T(nb) block pairs, i >= j, from
+    the paper's inverse-triangular map in int64 numpy, and the (L, C, C)
+    pair mask (causal on the diagonal pairs, open below).  The pair axis is
+    padded to a multiple of 16 with fully masked pairs (0, 0), which add
+    exactly zero."""
+    npairs = nb * (nb + 1) // 2
+    lam = np.arange(npairs, dtype=np.int64)
+    i_np = (np.sqrt(8 * lam + 1).astype(np.int64) - 1) // 2
+    i_np += ((i_np + 2) * (i_np + 1) // 2 <= lam)   # exactness correction
+    j_np = lam - i_np * (i_np + 1) // 2
+    diag_mask = np.tril(np.ones((chunk, chunk), bool))
+    pair_mask = np.where((i_np == j_np)[:, None, None], diag_mask[None], True)
+    pad = (-npairs) % 16
+    if pad:
+        i_np = np.concatenate([i_np, np.zeros(pad, np.int64)])
+        j_np = np.concatenate([j_np, np.zeros(pad, np.int64)])
+        pair_mask = np.concatenate(
+            [pair_mask, np.zeros((pad, chunk, chunk), bool)], axis=0)
+    return i_np, j_np, pair_mask
+
+
 def _sdpa_mapped_causal(q, k, v, n_kv_heads, chunk: int = _Q_CHUNK):
-    raise NotImplementedError(UNPORTED_XLA_MAPPED)
+    """Causal SDPA over the *mapped triangular block grid*, in plain torch
+    (the reference's is plain XLA, so this is its port and no kernel's).
+
+    The (q block i, k block j) pairs are enumerated linearly with the
+    paper's inverse-triangular map; nb is static, so λ -> (i, j) is computed
+    on the host (``_pair_tables``) and the pair axis is a batch dim with
+    static gather indices: exactly T(nb) = nb(nb+1)/2 block pairs (no BB
+    waste), padded to a multiple of 16.  Rows combine by a segment softmax
+    over the static row ids: a segment max (``scatter_reduce`` "amax"),
+    exps, segment sums (``index_add``).  Exact in fp32 and differentiable
+    through autograd (the max is a constant shift, taken without gradient).
+
+    Memory: the fp32 logits are (B, L, Hk, H/Hk, C, C).  At yi-6b's S 4096
+    with chunk 256, T(16) = 136 pairs padded to 144: about 1.2 GB a layer
+    at batch 1, and as much again for the exps.
+    """
+    b, s, h, d = q.shape
+    dv = v.shape[-1]
+    g = h // n_kv_heads
+    scale = d ** -0.5
+    nb = s // chunk
+    assert s % chunk == 0
+    i_np, j_np, mask_np = _pair_tables(nb, chunk)
+    dev = q.device
+    i_t = torch.from_numpy(i_np).to(dev)
+    j_t = torch.from_numpy(j_np).to(dev)
+    pair_mask = torch.from_numpy(mask_np).to(dev)
+    npairs = i_t.shape[0]
+
+    qp = q.reshape(b, nb, chunk, n_kv_heads, g, d).index_select(1, i_t)
+    kp = k.reshape(b, nb, chunk, n_kv_heads, d).index_select(1, j_t)
+    vp = v.reshape(b, nb, chunk, n_kv_heads, dv).index_select(1, j_t)
+    logits = torch.einsum("blskgd,bltkd->blkgst", qp.to(torch.float32),
+                          kp.to(torch.float32)) * scale   # (B,L,kv,g,C,C)
+    logits = logits.masked_fill(~pair_mask[None, :, None, None], NEG_INF)
+
+    m_pair = logits.detach().amax(dim=-1)            # (B, L, kv, g, C)
+    seg = i_t.view(1, npairs, 1, 1, 1).expand_as(m_pair)
+    m_row = m_pair.new_full((b, nb, n_kv_heads, g, chunk), NEG_INF) \
+        .scatter_reduce(1, seg, m_pair, "amax", include_self=True)
+    p = torch.exp(logits - m_row.index_select(1, i_t)[..., None])
+    l_row = p.new_zeros((b, nb, n_kv_heads, g, chunk)).index_add(
+        1, i_t, p.sum(dim=-1))
+    o_pair = torch.einsum("blkgst,bltkd->blkgsd", p, vp.to(torch.float32))
+    o_row = o_pair.new_zeros((b, nb, n_kv_heads, g, chunk, dv)).index_add(
+        1, i_t, o_pair)                              # (B, nb, kv, g, C, dv)
+    out = o_row / torch.clamp(l_row, min=1e-30)[..., None]
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, s, h, dv)
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

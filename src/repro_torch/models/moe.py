@@ -209,6 +209,24 @@ def _moe_apply_grouped(p: MoE, cfg, x, groups: int, with_aux: bool):
     return out, aux
 
 
+def _all_gather(t, group):
+    """``t`` of every rank of ``group``, stacked along dim 0.  Through
+    autograd only where a gradient can be asked: a pass without one takes
+    the plain collective, whose fake kernel every torch has (the dry run
+    runs prefill and decode on fake tensors)."""
+    if torch.is_grad_enabled():
+        return funcol.all_gather_tensor_autograd(t, 0, group)
+    return funcol.all_gather_tensor(t, 0, group)
+
+
+def _all_to_all(t, group):
+    """Even all-to-all of ``t``'s rows over ``group``, as ``_all_gather``
+    picks its collective."""
+    if torch.is_grad_enabled():
+        return funcol.all_to_all_single_autograd(t, None, None, group)
+    return funcol.all_to_all_single(t, None, None, group)
+
+
 def moe_apply(p: MoE, cfg, x, with_aux: bool = False):
     """x: (B, S, d) -> (B, S, d)  [or (out, aux_loss) with with_aux].
 
@@ -236,8 +254,7 @@ def moe_apply(p: MoE, cfg, x, with_aux: bool = False):
     whole = x
     for a in reversed(DATA_AXES):
         if a in sizes:
-            whole = funcol.all_gather_tensor_autograd(
-                whole, 0, ctx.mesh.get_group(a))
+            whole = _all_gather(whole, ctx.mesh.get_group(a))
     out = _moe_apply_grouped(p, cfg, whole, groups, with_aux)
     row = 0
     for a in DATA_AXES:
@@ -313,8 +330,11 @@ def _local_sort_dispatch(ids, n_buckets: int, cap: int):
     Pure index math on one shard (no cross-device semantics)."""
     order = torch.argsort(ids, stable=True)
     sorted_ids = ids[order]
-    counts = torch.bincount(sorted_ids, minlength=n_buckets)
-    start = torch.cumsum(counts, 0) - counts
+    # each bucket's first row, as the global dispatch finds it: bincount
+    # would size its output on the host
+    start = torch.searchsorted(
+        sorted_ids, torch.arange(n_buckets, device=ids.device,
+                                 dtype=sorted_ids.dtype))
     pos = torch.arange(ids.shape[0], device=ids.device) - start[sorted_ids]
     keep = pos < cap
     slot_sorted = torch.where(keep, sorted_ids * cap + pos, n_buckets * cap)
@@ -393,7 +413,7 @@ def moe_apply_a2a(p: MoE, cfg, x, mesh, with_aux: bool = False,
                      torch.stack([eid % e_loc, torch.ones_like(eid)], 1))
 
     # ---- exchange tokens with expert shards ------------------------------
-    rx = funcol.all_to_all_single_autograd(sendx, None, None, group)
+    rx = _all_to_all(sendx, group)
     rmeta = torch.empty_like(meta)
     dist.all_to_all_single(rmeta, meta, group=group)
     # invalid rows -> bucket e_loc (dropped by capacity sentinel)
@@ -412,7 +432,7 @@ def moe_apply_a2a(p: MoE, cfg, x, mesh, with_aux: bool = False,
     flat = oute.reshape(e_loc * cap_loc, d)
     safe2 = torch.clamp(slot2, max=e_loc * cap_loc - 1)
     back = torch.where(drop2[:, None], 0.0, flat[safe2])
-    backx = funcol.all_to_all_single_autograd(back, None, None, group)
+    backx = _all_to_all(back, group)
     safe1 = torch.clamp(slot, max=msh * cap_send - 1)
     per_assign = torch.where(keep[:, None],
                              backx[safe1] * wgt[:, None].to(x.dtype), 0.0)
@@ -420,8 +440,7 @@ def moe_apply_a2a(p: MoE, cfg, x, mesh, with_aux: bool = False,
     # reassemble the data shard's tokens across the model axis; its
     # cotangent is replicated over model, so it is divided by the model size
     # before the all-gather's backward sums it (shard_map's transpose)
-    out = _ScaleGrad.apply(
-        funcol.all_gather_tensor_autograd(out_loc, 0, group), 1.0 / msh)
+    out = _ScaleGrad.apply(_all_gather(out_loc, group), 1.0 / msh)
     out = out.reshape(b, s, d)
     if p.shared is not None:
         out = out + swiglu(x, p.shared.gate, p.shared.up, p.shared.down)

@@ -804,11 +804,15 @@ def init_params(cfg, generator: torch.Generator | None = None,
                 ) -> DenseLM | VisionLM | RWKVLM | HybridLM | WhisperLM:
     """Random weights from ``generator`` (a fresh one seeded 0 if None),
     made on ``device``: the reference's distributions, not its numbers.
-    A vlm cross layer's ``xattn_gate`` is 0, as in the reference."""
+    A vlm cross layer's ``xattn_gate`` is 0, as in the reference.  On
+    ``meta`` nothing is allocated and the generator is never drawn from
+    (a generator has no meta device, so a fresh one lives on the CPU): the
+    abstract path that sizes a model without its weights."""
     require_ported(cfg)
     dtype = _dtype(cfg)
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        gen_device = "cpu" if torch.device(device).type == "meta" else device
+        generator = torch.Generator(device=gen_device).manual_seed(0)
     if cfg.family == "audio":
         return _whisper_init(generator, cfg, dtype, device)
     d = cfg.d_model

@@ -403,8 +403,14 @@ def test_dryrun_refusals(tmp_path, monkeypatch):
         dryrun.main(["--domain-map", "menger3d", "--device", "cpu",
                      "--out", str(tmp_path)])
     assert "not deployable" in str(e.value.code)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        dryrun.main(["--arch", "yi-6b", "--shape", "train_4k"])
+    # the (arch x shape) dry run is ported (queue 1 item 10): a cell runs
+    # on the fake production mesh; --arch alone is refused
+    dryrun.main(["--arch", "yi-6b", "--shape", "train_4k", "--multi-pod",
+                 "off", "--smoke", "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "yi-6b__train_4k__sp.json").read_text())
+    assert rec["status"] == "ok" and rec["step"]["flops_per_device"] > 0
+    with pytest.raises(SystemExit, match="--arch and --shape"):
+        dryrun.main(["--arch", "yi-6b"])
     # the default device is the card: without one it raises, never falls
     # back to the plain version
     with pytest.raises(RuntimeError, match="no CUDA device"):

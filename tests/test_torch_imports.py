@@ -83,3 +83,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.train.fault_tolerance",
                  "repro_torch.launch.train"):
         assert name in seen["modules"]
+    # launch and analysis tooling (queue 1 item 10)
+    for name in ("repro_torch.configs.shapes", "repro_torch.launch.specs",
+                 "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+                 "repro_torch.launch.hlo_analysis"):
+        assert name in seen["modules"]

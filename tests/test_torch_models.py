@@ -317,9 +317,11 @@ def test_unported_families_raise(arch):
 
 
 def test_unported_attention_raises():
-    """xla_mapped (item 10) still raises.  Cross-attention (item 7) is
-    ported: ``cross_kv`` attends over the given states without a mask and
-    takes no cache (its parity is held in
+    """xla_mapped (item 10) is ported: it no longer raises, and at S 512
+    it gives the plain attention's output (its parity with the reference's
+    is held in ``tests/test_torch_launch_tools.py``).  Cross-attention
+    (item 7) is ported: ``cross_kv`` attends over the given states without
+    a mask and takes no cache (its parity is held in
     ``tests/test_torch_cross_models.py``).  MLA (item 8c) is ported: a
     config with ``attention_type="mla"`` builds MLA layers, which take no
     ``cross_kv`` (parity in ``tests/test_torch_mla.py``)."""
@@ -335,8 +337,11 @@ def test_unported_attention_raises():
                                      cross_kv=torch.from_numpy(xs))
     assert cache is None
     assert np.abs(_np(got) - _np(want)).max() < TOL
-    with pytest.raises(NotImplementedError, match="item 10"):
-        attention.gqa_apply(p, cfg.replace(attn_impl="xla_mapped"), x)
+    x = torch.from_numpy((_rng(10).standard_normal((1, 512, cfg.d_model))
+                          * 0.3).astype(np.float32))
+    mapped, _ = attention.gqa_apply(p, cfg.replace(attn_impl="xla_mapped"), x)
+    plain, _ = attention.gqa_apply(p, cfg.replace(attn_impl="xla"), x)
+    assert (mapped - plain).abs().max() < 2e-5
     mla_cfg = get_smoke_config("deepseek-v2-236b")
     mla = attention.mla_init(torch.Generator(), mla_cfg, torch.float32)
     assert isinstance(mla, attention.MLAAttention)

@@ -32,6 +32,17 @@ from repro_torch.train.train_step import TrainConfig, lm_loss, make_eval_step
 
 ARCH = "rwkv6-3b"
 TOL = 1e-4
+#: The whole smoke model's logits, relative to their max |logit|.  Against a
+#: float64 evaluation of the same math the reference's chunked logits lie
+#: 5.5e-5 of the max away and the port's 8.8e-5; layer 0's fp32 output
+#: alone (1e-6 off), carried on in float64, already lands 1.9e-4 (reference)
+#: and 2.9e-4 (port) from it: the per-head group norm divides by a head's
+#: rms of o, 0.008 at one position of layer 1, so fp32 rounding grows about
+#: 200x by the logits.  The bound sits between the packages' measured
+#: difference (3.2e-5) and the sum of their float64 distances (1.4e-4);
+#: ``test_forward_bound_catches_a_decay_fault`` holds that it still fails a
+#: 1e-3 shift of layer 0's ``decay_base``.
+FWD_REL = 1e-4
 #: tests/test_models.py:199
 MIX_CFG = dict(d_model=64, rwkv_heads=4, rwkv_decay_lora=16, d_ff=128)
 
@@ -260,7 +271,116 @@ def test_forward_matches_reference(model, s):
         T.forward(params, cfg, torch.from_numpy(toks))
     assert got.dtype == torch.float32 and got.shape == (2, s,
                                                         cfg.padded_vocab)
-    assert np.abs(_np(got) - _np(want)).max() < TOL
+    assert _fwd_rel(got, want) < FWD_REL
+
+
+def _fwd_rel(got, want) -> float:
+    return float(np.abs(_np(got) - _np(want)).max() / np.abs(_np(want)).max())
+
+
+def _rms64(x, w, eps=1e-6):
+    return x / np.sqrt((x * x).mean(-1, keepdims=True) + eps) * w
+
+
+def _layer64(lp: dict, x):
+    """One RWKV-6 layer in float64 numpy (the recurrence step by step),
+    from a zero state: the same math as both packages."""
+    tp, cp = lp["tmix"], lp["cmix"]
+    b, s, d = x.shape
+    h, hd = tp["bonus_u"].shape
+
+    def shifted(t):
+        return np.concatenate([np.zeros_like(t[:, :1]), t[:, :-1]], 1)
+
+    n1 = _rms64(x, lp["ln1"])
+    xs = shifted(n1)
+
+    def mix(m):
+        return n1 * m + xs * (1 - m)
+
+    r, k, v, g = (mix(tp[f"mix_{c}"]) @ tp[f"w{c}"] for c in "rkvg")
+    w = np.exp(-np.exp(tp["decay_base"]
+                       + np.tanh(mix(tp["mix_w"]) @ tp["wd1"]) @ tp["wd2"]))
+    rh, kh, vh, wh = (t.reshape(b, s, h, hd) for t in (r, k, v, w))
+    state = np.zeros((b, h, hd, hd))
+    o = np.empty_like(rh)
+    for t in range(s):
+        o[:, t] = np.einsum("bhk,bhkv->bhv", rh[:, t], state) + (
+            rh[:, t] * tp["bonus_u"] * kh[:, t]).sum(-1, keepdims=True) \
+            * vh[:, t]
+        state = wh[:, t][..., None] * state \
+            + kh[:, t][..., None] * vh[:, t][..., None, :]
+    o = _rms64(o, np.ones(hd)).reshape(b, s, d) * tp["ln_x"]
+    x = x + (o * g / (1 + np.exp(-g))) @ tp["wo"]
+    n2 = _rms64(x, lp["ln2"])
+    xs = shifted(n2)
+    xk = n2 * cp["mix_k"] + xs * (1 - cp["mix_k"])
+    xr = n2 * cp["mix_r"] + xs * (1 - cp["mix_r"])
+    kk = np.square(np.maximum(xk @ cp["wk"], 0))
+    return x + (kk @ cp["wv"]) / (1 + np.exp(-(xr @ cp["wr"])))
+
+
+def test_forward_float64_distances(model):
+    """What ``FWD_REL`` rests on: against a float64 evaluation of the same
+    math, the reference's and the port's chunked logits each lie within
+    1.5e-4 of the max, and layer 0's fp32 output alone (each package's),
+    carried through the other layers in float64, already lands more than
+    ``TOL`` (the old absolute bound) from it: the model, not a departure,
+    grows layer 0's rounding (about 1e-6) past that bound."""
+    rcfg, rparams, params = model
+    cfg = _cfg()
+    toks = _tokens(1, cfg.vocab_size, (2, 64))
+    p64 = jax.tree.map(lambda a: np.asarray(a, np.float64), rparams)
+    layers = [jax.tree.map(lambda a: a[i], p64["layers"])
+              for i in range(rcfg.n_layers)]
+
+    def head(x):
+        return _rms64(x, p64["final_norm"]) @ p64["lm_head"]
+
+    x = p64["embed"][toks]
+    for lp in layers:
+        x = _layer64(lp, x)
+    exact = head(x)
+    scale = np.abs(exact).max()
+    ref_logits = np.asarray(RT.forward(rparams, rcfg, jnp.asarray(toks)),
+                            np.float64)
+    port_logits = T.forward(params, cfg, torch.from_numpy(toks)) \
+        .double().numpy()
+    for got in (ref_logits, port_logits):
+        assert np.abs(got - exact).max() / scale < 1.5e-4
+    # layer 0 in fp32 by each package, the rest in float64
+    ref_x0, _ = RT._rwkv_layer_apply(
+        jax.tree.map(lambda a: a[0], rparams["layers"]), rcfg,
+        jnp.take(rparams["embed"], jnp.asarray(toks), axis=0),
+        RT._rwkv_zero_state(rcfg, 2))
+    with torch.no_grad():
+        port_x0, _ = T._rwkv_layer_apply(
+            params.layers[0], cfg, T._embed(params, cfg,
+                                            torch.from_numpy(toks).long()),
+            T._rwkv_zero_state(cfg, 2, "cpu"))
+    for x0 in (np.asarray(ref_x0, np.float64), port_x0.double().numpy()):
+        assert np.abs(x0 - _layer64(layers[0], p64["embed"][toks])).max() \
+            < 2e-6
+        x = x0
+        for lp in layers[1:]:
+            x = _layer64(lp, x)
+        assert np.abs(head(x) - exact).max() > TOL
+
+
+def test_forward_bound_catches_a_decay_fault(model):
+    """The control of ``FWD_REL``: layer 0's ``decay_base`` moved by 1e-3
+    (w = exp(-exp(-6)) moves by 2.5e-6 a step) must fail the bound that
+    the clean port passes."""
+    rcfg, rparams, _ = model
+    cfg = _cfg()
+    params = params_from_jax(jax.tree.map(np.asarray, rparams),
+                             get_smoke_config(ARCH), "cpu")
+    with torch.no_grad():
+        params.layers[0].tmix.decay_base.add_(1e-3)
+    toks = _tokens(1, cfg.vocab_size, (2, 64))
+    want = RT.forward(rparams, rcfg, jnp.asarray(toks))
+    got = T.forward(params, cfg, torch.from_numpy(toks))
+    assert _fwd_rel(got, want) > FWD_REL
 
 
 def test_lm_loss_and_eval_step_match_reference(model):
