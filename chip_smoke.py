@@ -572,6 +572,12 @@ TRAIN_GATE_LAYERS, CKPT_LAYERS = 4, 1
 #: difference (one rank: they are equal bit for bit); the entry point under
 #: torch.distributed.run against train_entry's final metrics
 SHARDED_RTOL, SHARDED_ENTRY_RTOL = 1e-6, 1e-5
+#: the sharded step's peak device memory over the single-device step's:
+#: it holds one layer's weights gathered, never the whole model
+SHARDED_PEAK_SLACK_GB = 0.5
+#: the dry run's yi-6b x train_4k on the fake 16x16 group: each rank's
+#: FLOPs over analytic_flops / 256, and its peak of live bytes
+DRYRUN_YI_FLOPS_RATIO_MAX, DRYRUN_YI_PEAK_GB_MAX = 2.5, 80.0
 #: --train-probe: the main path's 4 steps at these learning rates (full
 #: depth, bf16), and at TRAIN_GATE_LAYERS layers in bf16 and in fp32 at the
 #: main path's 3e-4
@@ -2548,18 +2554,26 @@ class Smoke:
                   f"{path.name}: analytic differs from cell_analytics")
             st = rec["step"]
             check(st["flops_per_device"] > 0, f"{path.name}: no FLOPs")
+            share = rec["analytic"]["analytic_flops"] / math.prod(
+                rec["mesh"].values())
             cells.append({
                 "cell": path.stem, "lower_s": rec["lower_s"],
                 "run_s": rec["run_s"],
                 "flops_per_device": st["flops_per_device"],
-                "analytic_flops_per_chip":
-                    rec["analytic"]["analytic_flops"]
-                    / math.prod(rec["mesh"].values()),
+                "analytic_flops_per_chip": share,
+                "flops_over_share": st["flops_per_device"] / share,
+                "peak_gb": rec["memory"]["peak_bytes"] / 1e9,
                 "collectives": {k: v for k, v in st["collectives"].items()
                                 if isinstance(v, dict) and v["count"]},
                 "comm_debug_counts": st["comm_debug_counts"],
                 "memory_gb": {k: v / 1e9 for k, v in rec["memory"].items()}})
         check(len(cells) == 3, f"{len(cells)} records, want 3")
+        yi = next(c for c in cells if c["cell"] == "yi-6b__train_4k__sp")
+        yi_split = {"flops_over_share": yi["flops_over_share"],
+                    "peak_gb": yi["peak_gb"]}
+        check(yi["flops_over_share"] <= DRYRUN_YI_FLOPS_RATIO_MAX
+              and yi["peak_gb"] < DRYRUN_YI_PEAK_GB_MAX,
+              f"yi-6b x train_4k on 16x16: {yi_split}")
         md = roofline.render_markdown(roofline.load_rows(str(out)))
         mp_rows = roofline.load_rows(str(out), multi_pod=True)
         check(len(mp_rows) == 1 and md.count("\n") == 3,
@@ -2578,7 +2592,7 @@ class Smoke:
             check(proc.returncode == 0, f"--all exited {proc.returncode}")
             all_run = time.perf_counter() - t0
         emit({"phase": "dryrun_arch", "card": self.card, "runs": runs,
-              "wall_s": wall,
+              "wall_s": wall, "yi_6b_train_4k_16x16": yi_split,
               "cells": cells, "roofline_markdown": md,
               "all_estimate_s": estimate, "all_s": all_run,
               "note": "fake tensors on a fake 256/512-rank group: FLOPs, "
@@ -5202,9 +5216,11 @@ class Smoke:
     def _sharded_step(self, cfg, mesh) -> dict:
         """The train phase's first step twice from seed-0 weights: on the
         single-device step, then, from the same weights put back and laid
-        out on ``mesh``, on the sharded step under the profiler (the main
+        out on ``mesh``, on the sharded step (a split step: on one rank it
+        gathers nothing and splits nothing) under the profiler (the main
         path's counts reset just before it); then one more sharded step,
-        timed.  The embedding gradient of the first is kept for the
+        timed.  Each step's peak device memory is read from a reset; the
+        embedding gradient of the first is kept on the host for the
         compressed all-reduce."""
         torch, AK = self.torch, self.AK
         from torch.distributed.tensor import DTensor
@@ -5220,10 +5236,14 @@ class Smoke:
         host = {n: p.detach().to("cpu", copy=True)
                 for n, p in params.named_parameters()}
         state = opt.init_state(params)
+        self.sync()
+        torch.cuda.reset_peak_memory_stats()
         with self._timed_optimizer(keep_grads=True) as (_, grads):
             params, state, m1 = make_train_step(cfg, tcfg)(
                 params, state, batches[0])
-        embed_grad = grads[0]["embed"]
+        self.sync()
+        single_peak = torch.cuda.max_memory_allocated() / 1e9
+        embed_grad = grads[0]["embed"].cpu()
         del grads
         single = {k: float(v) for k, v in m1.items()}
         want = {n: p.detach().to("cpu", copy=True)
@@ -5283,6 +5303,9 @@ class Smoke:
         check(all(math.isfinite(float(v)) for v in m3.values())
               and int(state["step"]) == 2, f"the second sharded step: {m3}")
         peak = torch.cuda.max_memory_allocated() / 1e9
+        check(peak <= single_peak + SHARDED_PEAK_SLACK_GB,
+              f"sharded step peak {peak:.2f} GB against the single-device "
+              f"step's {single_peak:.2f} GB")
         del params, state, batches
         self._free()
         return {"single_device": single, "sharded": got, "metric_rel": rel,
@@ -5291,7 +5314,9 @@ class Smoke:
                 "sm90_kernels_traced": traced,
                 "second_step_s": step_s,
                 "train_phase_step_s": getattr(self, "train_step_s", None),
-                "peak_gb": peak, "embed_grad": embed_grad}
+                "peak_gb": peak, "single_device_peak_gb": single_peak,
+                "peak_over_single_device_gb": peak - single_peak,
+                "embed_grad": embed_grad}
 
     def _compressed(self, g, group) -> dict:
         """compressed_psum_mean on one leaf over the 1-rank group against
@@ -5372,7 +5397,7 @@ class Smoke:
             mesh = make_local_mesh()
             backend = dist.get_backend()
             main = self._sharded_step(self._train_cfg(), mesh)
-            compressed = self._compressed(main.pop("embed_grad"),
+            compressed = self._compressed(main.pop("embed_grad").cuda(),
                                           mesh.get_group("data"))
         finally:
             dist.destroy_process_group()

@@ -63,7 +63,7 @@ class ModelConfig:
     attn_impl: str = "xla"          # xla | pallas_mapped | pallas_bb
     attn_block: int = 128
     pallas_interpret: bool = False
-    dtype: str = "bfloat16"
+    dtype: str = "bfloat16"         # bfloat16 | float32 | float64 (CPU checks)
     remat: bool = True
     remat_policy: str = "full"      # full (recompute all) | dots | none
     scan_layers: bool = True

@@ -27,10 +27,13 @@ Each record holds, for rank 0 (per device):
     the step;
   * ``analytic`` — ``analytic.cell_analytics``, the idealized bound;
   * ``lower_s`` (building the inputs) and ``run_s`` (the fake step).
-What the port does is what is recorded: compute along ``model`` is
-replicated (ROADMAP queue 1 item 9c), so per-device FLOPs exceed
-``analytic_flops / 256`` by up to the ``model`` size, and a step that
-gathers whole weights peaks above a card's memory.
+What the port does is what is recorded: each step is a split step
+(``distribution/tensor_parallel.py``): heads, ffn, vocab and experts split
+over ``model`` where their widths divide it, each layer's weights gathered
+over the data axes as the layer runs.  Per-device FLOPs exceed
+``analytic_flops / 256`` by remat's recompute, ``xla``'s full square of
+attention scores, and whatever stays whole along ``model`` (a width that
+does not divide it, rwkv6's and mamba2's layers, ROADMAP queue 1 item 9d).
 
 ``--domain-map DOMAIN`` derives the domain's ``MappingArtifact`` (mock
 backend, the artifact store at ``$REPRO_ARTIFACT_CACHE``), deploys it

@@ -19,11 +19,12 @@ The port's steps take the global batch, the same on every rank, and each
 rank computes its rows of it (``batch`` over the data axes, as the cell's
 activation rules say; ranks along ``model`` take the same rows): so tokens
 and extra inputs are plain global tensors and ``batch_specs`` is the layout
-the step applies.  The prefill and decode steps gather the whole weights,
-as the sharded train step does (compute along ``model`` is replicated,
-ROADMAP queue 1 item 9c); decode gathers each cache leaf over every mesh
-axis but the batch's, runs ``decode_step`` on its rows and keeps its shard
-of the new cache.
+the step applies.  The prefill and decode steps are split steps, as the
+sharded train step is (``distribution/tensor_parallel.py``): each layer
+gathers its weights over the data axes, and heads, ffn, vocab and experts
+are split over ``model`` (their logits are this rank's vocab chunk);
+decode gathers each cache leaf over every mesh axis but the batch's, runs
+``decode_step`` on its rows and keeps its shard of the new cache.
 
 The port's cache is a list of per-layer dicts (``models/transformer.py``
 ``init_cache``), so ``cache_specs`` gives each layer's leaves the
@@ -38,6 +39,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.distribution import sharding as shd
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models import transformer as T
 from repro_torch.train import sharded
 
@@ -237,7 +239,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh, tcfg=None,
         tokens = torch.zeros((b, s), dtype=torch.int64)
 
         def fn(p, t, e):
-            with sharded.gathered(p):
+            with tp.use_split(p, mesh):
                 logits, cache = T.prefill(p, cfg, _rows(t, specs["tokens"],
                                                         mesh),
                                           _rows(e, extra_spec, mesh))
@@ -267,7 +269,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh, tcfg=None,
         local = tree_map(
             lambda ax, leaf: _gather_but_batch(leaf, ax.index("batch")),
             axes, c)
-        with sharded.gathered(p):
+        with tp.use_split(p, mesh):
             logits, new_cache = T.decode_step(
                 p, cfg, _rows(t, specs["tokens"], mesh), local,
                 _rows(e, extra_spec, mesh))

@@ -29,8 +29,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models.common import (
-    EMBED, HEAD_DIM, HEADS, KV_HEADS, dense_init, frozen_param, rms_norm, rope,
+    EMBED, HEAD_DIM, HEADS, KV_HEADS, dense_init, frozen_param, island_dtype,
+    rms_norm, rope,
 )
 
 NEG_INF = -1e30
@@ -50,12 +52,12 @@ def _sdpa(q, k, v, n_kv_heads: int, q_pos=None, chunk: int = _Q_CHUNK,
     dv = v.shape[-1]
     g = h // n_kv_heads
     scale = (logit_dim or d) ** -0.5
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
+    kf = k.to(island_dtype(k.dtype))
+    vf = v.to(kf.dtype)
     kv_idx = torch.arange(t, device=q.device)
 
     def block(q_blk, pos_blk):
-        qg = q_blk.reshape(b, -1, n_kv_heads, g, d).to(torch.float32)
+        qg = q_blk.reshape(b, -1, n_kv_heads, g, d).to(kf.dtype)
         logits = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
         if pos_blk is not None:
             mask = kv_idx[None, :] <= pos_blk[..., None]      # (B, C, T)
@@ -204,21 +206,99 @@ def _pallas_causal(q, k, v, grid_mode: str, block: int, interpret: bool):
     return out.transpose(1, 2)
 
 
+def _kv_heads(q0: int, hl: int, h: int, hk: int):
+    """The kv heads [lo, hi) that q heads [q0, q0 + hl) read, and None when
+    they read them as GQA groups of hl / (hi - lo) consecutive q heads, else
+    the index in [0, hi - lo) of each q head's kv head: where this rank's q
+    heads cover only part of a group at either end, k and v are expanded
+    to one head per q head (MHA)."""
+    g = h // hk
+    lo, hi = q0 // g, (q0 + hl - 1) // g + 1
+    if hl % g == 0 or g % hl == 0:
+        return lo, hi, None
+    return lo, hi, [(q0 + i) // g - lo for i in range(hl)]
+
+
+class _Heads:
+    """How one attention call splits its heads: this rank's q heads
+    [q0, q0 + hl) and the kv heads they read (``_kv_heads``) under a split
+    of ``heads`` over ``model`` (``tp.split``); every head otherwise."""
+
+    def __init__(self, cfg):
+        h, hk = cfg.n_heads, cfg.n_kv_heads
+        self.split = tp.split(HEADS, h)
+        if self.split:
+            j, m = tp.model_rank()
+            self.hl = h // m
+            self.lo, self.hi, self.expand = _kv_heads(j * self.hl, self.hl, h,
+                                                      hk or h)
+        else:
+            self.hl, self.lo, self.hi, self.expand = h, 0, hk, None
+
+    @property
+    def n_kv(self) -> int:
+        """kv heads the attention reads (after ``select``)."""
+        return self.hl if self.expand is not None else self.hi - self.lo
+
+    def enter(self, x):
+        return tp.copy_in(x) if self.split else x
+
+    def leave(self, y):
+        return tp.reduce_out(y) if self.split else y
+
+    def q_weight(self, w):
+        return tp.take(w, 1) if self.split else tp.take(w)
+
+    def out_weight(self, w):
+        return tp.take(w, 0) if self.split else tp.take(w)
+
+    def shared(self, w):
+        """A weight every local head uses (kv projections, norms): whole,
+        its gradient summed over ``model`` under a split."""
+        return None if w is None else tp.take(w, partial=self.split)
+
+    def select(self, t, whole: bool):
+        """(B, T, kv heads, D) -> the kv heads this rank's q heads read;
+        ``whole``: ``t`` holds every kv head (else [lo, hi) already)."""
+        if whole and self.split:
+            t = t[:, :, self.lo:self.hi]
+        if self.expand is not None:
+            t = t.index_select(2, torch.tensor(self.expand, device=t.device))
+        return t
+
+
 def gqa_apply(p: GQAAttention, cfg, x, *, positions=None, cache=None,
               cross_kv=None):
     """Returns (out, new_cache). x: (B, S, d); cross_kv: (B, T, d) states
-    that k and v are projected from (cross-attention: no cache)."""
+    that k and v are projected from (cross-attention: no cache).
+
+    With ``heads`` split over ``model`` (the sharded step) this rank
+    computes its q heads (``wq``'s and ``wo``'s chunk) against the kv heads
+    they read, projected from the whole (replicated) ``wk`` / ``wv``: only
+    those heads without a cache, every head into a cache.  ``wo``'s
+    row-parallel product ends in one all-reduce over ``model``; the kernel
+    runs on the local heads at their local GQA ratio."""
     b, s, _ = x.shape
-    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = heads(x, p.wq, h, hd)
-    src = x if cross_kv is None else cross_kv
-    k, v = heads(src, p.wk, hk, hd), heads(src, p.wv, hk, hd)
+    hk, hd = cfg.n_kv_heads, cfg.head_dim
+    hs = _Heads(cfg)
+    x_in = hs.enter(x)
+    src = (x_in if cross_kv is None or cross_kv is x
+           else hs.enter(cross_kv))
+    wk, wv = hs.shared(p.wk), hs.shared(p.wv)
+    narrow = hs.split and cache is None
+    if narrow:                              # only the kv heads read here
+        wk, wv = wk[:, hs.lo:hs.hi], wv[:, hs.lo:hs.hi]
+    nk = hs.hi - hs.lo if narrow else hk
+    q = heads(x_in, hs.q_weight(p.wq), hs.hl, hd)
+    k, v = heads(src, wk, nk, hd), heads(src, wv, nk, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm)
-        k = rms_norm(k, p.k_norm)
+        q = rms_norm(q, hs.shared(p.q_norm))
+        k = rms_norm(k, hs.shared(p.k_norm))
+    wo = hs.out_weight(p.wo)
     if cross_kv is not None:               # rectangular box domain, no mask
-        out = _sdpa(q, k, v, hk, None)
-        return out.reshape(b, s, h * hd) @ p.wo, None
+        k, v = hs.select(k, False), hs.select(v, False)
+        out = _sdpa(q, k, v, hs.n_kv, None)
+        return hs.leave(out.reshape(b, s, hs.hl * hd) @ wo), None
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     positions = torch.as_tensor(positions, device=x.device).expand(b, s)
@@ -236,6 +316,8 @@ def gqa_apply(p: GQAAttention, cfg, x, *, positions=None, cache=None,
         }
         k = _cache_get(new_cache, "k", x.dtype)
         v = _cache_get(new_cache, "v", x.dtype)
+    k, v = hs.select(k, not narrow), hs.select(v, not narrow)
+    n_kv = hs.n_kv
 
     if (cache is None and cfg.attn_impl in ("pallas_mapped", "pallas_bb")
             and s % cfg.attn_block == 0 and s >= cfg.attn_block):
@@ -246,11 +328,24 @@ def gqa_apply(p: GQAAttention, cfg, x, *, positions=None, cache=None,
                              cfg.pallas_interpret)
     elif (cache is None and cfg.attn_impl == "xla_mapped"
             and s % _Q_CHUNK == 0 and s > _Q_CHUNK):
-        out = _sdpa_mapped_causal(q, k, v, hk, _Q_CHUNK)
+        out = _sdpa_mapped_causal(q, k, v, n_kv, _Q_CHUNK)
     else:
-        out = _sdpa(q, k, v, hk, positions)
-    y = out.reshape(b, s, h * hd) @ p.wo
-    return y, new_cache
+        out = _sdpa(q, k, v, n_kv, positions)
+    y = out.reshape(b, s, hs.hl * hd) @ wo
+    return hs.leave(y), new_cache
+
+
+def cached_cross(p: GQAAttention, cfg, x, xk, xv):
+    """Cross-attention of x (B, S, d) against k, v (B, T, Hk, hd)
+    projected once at prefill (no mask, no cache write), on this rank's
+    heads under a split of ``heads``."""
+    b, s, _ = x.shape
+    hs = _Heads(cfg)
+    q = heads(hs.enter(x), hs.q_weight(p.wq), hs.hl, cfg.head_dim)
+    o = _sdpa(q, hs.select(xk, True), hs.select(xv, True), hs.n_kv,
+              q_pos=None)
+    return hs.leave(o.reshape(b, s, hs.hl * cfg.head_dim)
+                    @ hs.out_weight(p.wo))
 
 
 def _quantize_rows(t):
@@ -365,21 +460,32 @@ def mla_apply(p: MLAAttention, cfg, x, *, positions=None, cache=None,
     the normed latent and runs ``_sdpa`` with q·k over dn + dr; with a cache
     and at most 32 new tokens (decode) the absorbed path moves ``wuk`` onto
     the query and ``wuv`` after the probabilities, so attention stays in the
-    kv_lora space (reference ``attention.py:373-393``)."""
+    kv_lora space (reference ``attention.py:373-393``).
+
+    With ``heads`` split over ``model`` the low-rank projections, the
+    latent, its cache and the RoPE key are computed whole on every rank;
+    the latents enter the split region, ``wuq`` / ``wuk`` / ``wuv`` and
+    ``wo`` give this rank's heads, and ``wo``'s product ends in one
+    all-reduce over ``model`` (both paths)."""
     if cross_kv is not None:
         raise ValueError("MLA has no cross-attention")
     b, s, _ = x.shape
-    h = cfg.n_heads
+    hs = _Heads(cfg)
+    hl = hs.hl
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     positions = torch.as_tensor(positions, device=x.device).expand(b, s)
+    wdq, q_norm, wdkv, kv_norm, wkr = (tp.take(w) for w in (
+        p.wdq, p.q_norm, p.wdkv, p.kv_norm, p.wkr))
+    wuq, wuk, wuv = (hs.q_weight(w) for w in (p.wuq, p.wuk, p.wuv))
+    wo = hs.out_weight(p.wo)
 
-    q = heads(rms_norm(x @ p.wdq, p.q_norm), p.wuq, h, dn + dr)
+    q = heads(hs.enter(rms_norm(x @ wdq, q_norm)), wuq, hl, dn + dr)
     q_nope = q[..., :dn]
     q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
-    ckv = x @ p.wdkv                                    # compressed kv
-    krope = rope((x @ p.wkr)[:, :, None, :], positions,
+    ckv = x @ wdkv                                      # compressed kv
+    krope = rope((x @ wkr)[:, :, None, :], positions,
                  cfg.rope_theta)[:, :, 0, :]            # shared rope key
 
     new_cache = None
@@ -389,12 +495,13 @@ def mla_apply(p: MLAAttention, cfg, x, *, positions=None, cache=None,
                      **_cache_put(cache, "krope", krope, idx),
                      "idx": idx + s}
         ckv, krope = new_cache["ckv"], new_cache["krope"]
-    ckv_n = rms_norm(ckv, p.kv_norm)
+    ckv_n = hs.enter(rms_norm(ckv, kv_norm))
+    krope = hs.enter(krope)
     t = ckv_n.shape[1]
 
     if cfg.mla_absorb != "never" and cache is not None and s <= 32:
         #   q·k = (W_uk q_nope)·c_kv ;  probs·v = (probs·c_kv)·W_uv
-        q_abs = torch.einsum("bshe,lhe->bshl", q_nope, p.wuk)
+        q_abs = torch.einsum("bshe,lhe->bshl", q_nope, wuk)
         cf = ckv_n.to(torch.float32)
         logits = (torch.einsum("bshl,btl->bhst", q_abs.to(torch.float32), cf)
                   + torch.einsum("bshr,btr->bhst", q_rope.to(torch.float32),
@@ -404,15 +511,16 @@ def mla_apply(p: MLAAttention, cfg, x, *, positions=None, cache=None,
                 <= start + torch.arange(s, device=x.device)[:, None])
         probs = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
         o_lat = torch.einsum("bhst,btl->bshl", probs, cf)
-        out = torch.einsum("bshl,lhe->bshe", o_lat.to(x.dtype), p.wuv)
-        return out.reshape(b, s, h * dv) @ p.wo, new_cache
+        out = torch.einsum("bshl,lhe->bshe", o_lat.to(x.dtype), wuv)
+        return hs.leave(out.reshape(b, s, hl * dv) @ wo), new_cache
 
-    k_nope = heads(ckv_n, p.wuk, h, dn)                 # (B, T, H, dn)
-    v = heads(ckv_n, p.wuv, h, dv)                      # (B, T, H, dv)
-    k = torch.cat([k_nope, krope[:, :, None, :].expand(b, t, h, dr)], dim=-1)
-    out = _sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, h, positions,
+    k_nope = heads(ckv_n, wuk, hl, dn)                  # (B, T, H, dn)
+    v = heads(ckv_n, wuv, hl, dv)                       # (B, T, H, dv)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(b, t, hl, dr)],
+                  dim=-1)
+    out = _sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, hl, positions,
                 logit_dim=dn + dr)
-    return out.reshape(b, s, h * dv) @ p.wo, new_cache
+    return hs.leave(out.reshape(b, s, hl * dv) @ wo), new_cache
 
 
 def mla_cache_init(cfg, batch: int, max_seq: int, dtype, device=None):

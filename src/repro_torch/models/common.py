@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distribution import tensor_parallel as tp
+
 # Logical axis names (mapped to mesh axes by distribution/sharding.py)
 BATCH = "batch"
 SEQ = "seq"
@@ -93,9 +95,16 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
     return w.mul_(0.02).to(dtype)
 
 
+def island_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of an fp32 island (norm statistics, rope, softmax, logits,
+    loss): fp32, or float64 in a float64 model (``dtype="float64"``, for
+    numerics checks on the CPU)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    xf = x.to(island_dtype(x.dtype))
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
@@ -109,16 +118,35 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * weight + bias
 
 
+def _ffn_split(w_in: torch.Tensor) -> bool:
+    return tp.split(FFN, tp.full_size(w_in, 1))
+
+
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
              w_down: torch.Tensor) -> torch.Tensor:
     """Whisper's MLP: down( gelu(x@up) ), with the tanh GELU that
-    ``jax.nn.gelu`` computes by default (torch's default is the erf form)."""
-    return F.gelu(x @ w_up, approximate="tanh") @ w_down
+    ``jax.nn.gelu`` computes by default (torch's default is the erf form).
+    With ``ffn`` split over ``model``: up column-parallel, down
+    row-parallel, one all-reduce."""
+    if _ffn_split(w_up):
+        x = tp.copy_in(x)
+        out = F.gelu(x @ tp.take(w_up, 1), approximate="tanh") \
+            @ tp.take(w_down, 0)
+        return tp.reduce_out(out)
+    return F.gelu(x @ tp.take(w_up), approximate="tanh") @ tp.take(w_down)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""
+    """SwiGLU MLP: down( silu(x@gate) * (x@up) ).  With ``ffn`` split over
+    ``model`` (the sharded step): gate and up column-parallel on this
+    rank's columns, down row-parallel on its rows, one all-reduce."""
+    if _ffn_split(w_gate):
+        x = tp.copy_in(x)
+        out = (F.silu(x @ tp.take(w_gate, 1)) * (x @ tp.take(w_up, 1))) \
+            @ tp.take(w_down, 0)
+        return tp.reduce_out(out)
+    w_gate, w_up, w_down = (tp.take(w) for w in (w_gate, w_up, w_down))
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
@@ -126,13 +154,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding over the last dim of (..., seq, n_heads, head_dim)."""
     half = x.shape[-1] // 2
+    dt = island_dtype(x.dtype)
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device) / half)
     angles = positions[..., :, None].to(torch.float32) * freqs
     cos = torch.cos(angles)[..., :, None, :]   # broadcast over heads
     sin = torch.sin(angles)[..., :, None, :]
-    xf1 = x[..., :half].to(torch.float32)
-    xf2 = x[..., half:].to(torch.float32)
+    xf1 = x[..., :half].to(dt)
+    xf2 = x[..., half:].to(dt)
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
 

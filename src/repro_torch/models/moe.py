@@ -20,12 +20,20 @@ or grouped dispatch, as the reference's does.
 
 Under ``use_sharding`` (the sharded train step) ``x`` holds this rank's rows
 of the batch: the rows of its data coordinate, the same on every rank of its
-``model`` group.  The global and grouped dispatch then all-gather the data
-shards' tokens first and route the whole batch, as the reference's global
-arrays are routed under GSPMD (the same capacities, drops and aux), and keep
-this rank's rows of the output; the all-gather's backward sums the
-cotangents over the data ranks, so each rank's gradient carries the aux term
-of the whole batch, which the step's average over data leaves once.
+``model`` group.  The global and grouped dispatch route only these rows, with
+the whole batch's capacities, drops and aux, as the reference's global arrays
+are routed under GSPMD (``_moe_apply_grouped``): where a group spans several
+data ranks an exclusive scan of the per-expert counts over them (one small
+all-gather) places each assignment in the slot the whole batch's sort gives
+it, and a sum over the data ranks fills the whole buffer.  The aux's mean
+probability is summed over the data ranks with the sum's adjoint, so each
+rank's gradient carries the aux term of the whole batch, which the step's
+average over data leaves once.  With ``experts`` split over ``model`` (a
+split step, ``distribution/tensor_parallel.py``) each rank runs its own
+experts on their whole capacity and the sum over k of a token's outputs
+ends in an all-reduce over ``model``: a rank sums its own experts' terms,
+rounded once, and the all-reduce adds the ranks' sums, each addition
+rounded again (in bf16 on the card).
 
 How the port differs from the reference's jnp, on purpose:
   * the buffer is filled by a gather (each slot reads the token the sort put
@@ -34,7 +42,8 @@ How the port differs from the reference's jnp, on purpose:
     scatter-adds the k weighted outputs into the token rows, k roundings in
     the activations' dtype in an order the backend picks (CUDA's bf16
     ``index_add_`` uses atomics, so its order changes from run to run); the
-    sum over k rounds once and is deterministic.
+    sum over k rounds once (once per rank, then the all-reduce's roundings,
+    with experts split over ``model``) and is deterministic.
   * no step reads a value back to the host: group starts come from
     ``searchsorted`` over the sorted expert ids (CUDA's ``bincount`` syncs to
     size its output), and capacities from the token count alone.
@@ -53,14 +62,12 @@ import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.distribution.sharding import current_ctx, mesh_shape
+from repro_torch.distribution.tensor_parallel import DATA_AXES, MODEL_AXIS
 from repro_torch.models.common import (
     EMBED, EXPERTS, FFN, SwiGLU, dense_init, frozen_param, mlp_specs, swiglu,
 )
-
-#: the reference's data axes, major first, and its expert-parallel axis
-DATA_AXES = ("pod", "data")
-MODEL_AXIS = "model"
 
 _RECORDERS: list[list] = []
 
@@ -126,15 +133,16 @@ def record_routing():
         _RECORDERS.remove(rec)
 
 
-def _route(p: MoE, cfg, toks):
+def _route(p: MoE, cfg, toks, cap: int, offsets=None):
     """toks (G, Tg, d) -> probs (G, Tg, E), top_w / top_e (G, Tg, k), and
     in sorted order: the token of each assignment (G, Tg·k), group starts
-    and counts (G, E); in token order: slot and keep (G, Tg·k)."""
+    and counts (G, E); in token order: slot and keep (G, Tg·k).
+    ``offsets(counts)`` -> (G, E): the slots of each expert that the data
+    ranks before this one fill in each group (none if not given)."""
     g, tg, _ = toks.shape
     e, k = cfg.n_experts, cfg.moe_top_k
-    cap = capacity_for(tg, cfg)
     dev = toks.device
-    probs = torch.softmax(toks.to(torch.float32) @ p.router, dim=-1)
+    probs = torch.softmax(toks.to(torch.float32) @ tp.take(p.router), dim=-1)
     top_w, top_e = torch.topk(probs, k, dim=-1)
     if cfg.moe_renormalize:
         top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-9)
@@ -146,6 +154,10 @@ def _route(p: MoE, cfg, toks):
     counts = torch.searchsorted(se, experts, right=True) - start
     ranks = torch.arange(tg * k, device=dev).expand(g, -1)
     pos = ranks - torch.gather(start, 1, se)
+    off = None
+    if offsets is not None:
+        off = offsets(counts)
+        pos = pos + torch.gather(off, 1, se)
     keep_sorted = pos < cap
     slot_sorted = torch.where(keep_sorted, se * cap + pos, e * cap)
     # back to token order: inv[order[i]] = i (order is a permutation)
@@ -153,7 +165,7 @@ def _route(p: MoE, cfg, toks):
     slot = torch.gather(slot_sorted, 1, inv)
     return {"probs": probs, "top_w": top_w, "top_e": top_e, "cap": cap,
             "token_sorted": order // k, "start": start, "counts": counts,
-            "slot": slot, "keep": slot < e * cap}
+            "off": off, "slot": slot, "keep": slot < e * cap}
 
 
 def _experts(gate, up, down, buf):
@@ -164,48 +176,132 @@ def _experts(gate, up, down, buf):
     return torch.bmm(F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up), down)
 
 
-def _moe_apply_grouped(p: MoE, cfg, x, groups: int, with_aux: bool):
+def _data_rank(mesh, axes) -> int:
+    """This rank's place among the data ranks of ``axes``, major first."""
+    sizes = mesh_shape(mesh)
+    row = 0
+    for a in axes:
+        row = row * sizes[a] + mesh.get_local_rank(a)
+    return row
+
+
+def _moe_apply_grouped(p: MoE, cfg, x, groups: int, with_aux: bool,
+                       mesh=None, rows: tuple = ()):
+    """The global (G = 1) and grouped dispatch of this rank's tokens.
+
+    ``rows``: the data axes that split the batch's rows (none without a
+    mesh).  Where the G groups split over them, this rank's rows are
+    G / (data ranks) whole groups, routed here alone.  Where each group
+    spans several data ranks (the global dispatch), this rank routes its
+    part of one group: an all-gather of the per-expert counts gives the
+    slots the ranks before it fill (an exclusive scan), so each assignment
+    lands in the slot the whole batch's routing gives it; each rank fills
+    its slots of the (E, G·C) buffer and a sum over the data ranks gives
+    every rank the whole buffer.  Capacities, drops and aux are the whole
+    batch's.  With ``experts`` split over ``model``, a rank runs only its
+    own experts, on their whole capacity, and the sum over k of each
+    token's weighted outputs is completed by an all-reduce over ``model``."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
-    n = b * s
+    dev = x.device
+    sizes = mesh_shape(mesh) if mesh is not None else {}
+    dsh = math.prod(sizes[a] for a in rows)
+    data_groups = [mesh.get_group(a) for a in rows]
+    n_loc = b * s
+    n = n_loc * dsh
     if n % groups:
         raise ValueError(f"{n} tokens do not split into {groups} moe_groups")
     tg = n // groups
-    toks = x.reshape(groups, tg, d)
-    r = _route(p, cfg, toks)
-    cap = r["cap"]
+    cap = capacity_for(tg, cfg)
+    offsets, cs = None, None
+    if groups % dsh == 0:                 # whole groups on this rank
+        g_r, col = groups // dsh, None
+    elif dsh % groups == 0:               # part of one group on this rank
+        per = dsh // groups
+        me = _data_rank(mesh, rows)
+        g_r, col = 1, me // per
+        first = col * per
+
+        def offsets(counts):
+            nonlocal cs
+            whole = counts
+            for grp in reversed(data_groups):   # pod-major rank order
+                whole = _all_gather(whole, grp)
+            cs = whole.reshape(dsh, e)
+            return cs[first:me].sum(0, keepdim=True)
+    else:
+        raise ValueError(f"{groups} moe_groups do not split over, or into, "
+                         f"{dsh} data ranks")
+    toks = x.reshape(g_r, n_loc // g_r, d)
+    r = _route(p, cfg, toks, cap, offsets)
+    tgr = toks.shape[1]
     for rec in _RECORDERS:
         rec.append({"top_e": r["top_e"], "keep": r["keep"],
                     "slot": r["slot"], "cap": cap})
-    dev = x.device
-    gi = torch.arange(groups, device=dev)[:, None]
+    split = tp.split(EXPERTS, e)
+    j, m = tp.model_rank()
+    e_loc = e // m if split else e
+    e0 = j * e_loc if split else 0
+    gi = torch.arange(g_r, device=dev)[:, None]
 
     # the buffer: slot (e, c) of group g holds the token at sorted index
-    # start[g, e] + c while c < counts[g, e], else zeros
+    # start[g, e] + c - off[g, e] where this rank fills it, else zeros
     c_idx = torch.arange(cap, device=dev)
-    filled = c_idx < r["counts"][..., None]                  # (G, E, C)
-    src = torch.where(filled, r["start"][..., None] + c_idx, 0)
-    tok = torch.gather(r["token_sorted"], 1, src.reshape(groups, e * cap))
-    buf = torch.where(filled.reshape(groups, e * cap, 1), toks[gi, tok], 0)
-    buf = buf.reshape(groups, e, cap, d).transpose(0, 1) \
-        .reshape(e, groups * cap, d)
-    out_e = _experts(p.gate, p.up, p.down, buf)             # (E, G·C, d)
+    start = r["start"][:, e0:e0 + e_loc, None]
+    counts = r["counts"][:, e0:e0 + e_loc, None]
+    if r["off"] is None:
+        rel = c_idx
+        filled = rel < counts                                # (G, E, C)
+    else:
+        rel = c_idx - r["off"][:, e0:e0 + e_loc, None]
+        filled = (rel >= 0) & (rel < counts)
+    src = torch.where(filled, start + rel, 0)
+    tok = torch.gather(r["token_sorted"], 1, src.reshape(g_r, e_loc * cap))
+    toks_in = tp.copy_in(toks) if split else toks
+    buf = torch.where(filled.reshape(g_r, e_loc * cap, 1), toks_in[gi, tok],
+                      0)
+    buf = buf.reshape(g_r, e_loc, cap, d).transpose(0, 1) \
+        .reshape(e_loc, g_r * cap, d)
+    if col is not None:                   # this rank's slots of every group
+        buf = tp.reduce_out(F.pad(buf, (0, 0, col * cap,
+                                        (groups - col - 1) * cap)),
+                            data_groups)
+    if split:
+        gate, up, down = (tp.take(w, 1) for w in (p.gate, p.up, p.down))
+    else:
+        gate, up, down = (tp.take(w) for w in (p.gate, p.up, p.down))
+    out_e = _experts(gate, up, down, buf)                 # (E, G·C, d)
 
     # the combine: each token's k outputs, weighted, summed over k
     slot, keep = r["slot"], r["keep"]
+    if split:
+        keep = keep & (slot >= e0 * cap) & (slot < (e0 + e_loc) * cap)
+        slot = slot - e0 * cap
     safe = torch.where(keep, slot, 0)
-    picked = out_e[safe // cap, gi * cap + safe % cap]        # (G, Tg·k, d)
-    w = r["top_w"].reshape(groups, tg * k, 1).to(x.dtype)
+    gcol = gi if col is None else col
+    picked = out_e[safe // cap, gcol * cap + safe % cap]  # (G, Tg·k, d)
+    w = r["top_w"].reshape(g_r, tgr * k, 1).to(x.dtype)
+    if split:
+        w = tp.copy_in(w)
     per_assign = torch.where(keep[..., None], picked * w, 0)
-    out = per_assign.reshape(groups, tg, k, d).sum(dim=2)
+    out = per_assign.reshape(g_r, tgr, k, d).sum(dim=2)
+    if split:
+        out = tp.reduce_out(out)
     if p.shared is not None:
         out = out + swiglu(toks, p.shared.gate, p.shared.up, p.shared.down)
     out = out.reshape(b, s, d)
     if not with_aux:
         return out
     # Switch-style load balancing: e · Σ_e (share of assignments) · (mean p)
-    frac = r["counts"].sum(0).to(torch.float32) / (n * k)
-    aux = e * torch.sum(frac * r["probs"].mean(dim=(0, 1)))
+    if dsh == 1:
+        total = r["counts"].sum(0)
+        mean_p = r["probs"].mean(dim=(0, 1))
+    else:
+        total = (cs.sum(0) if cs is not None
+                 else tp.reduce_out(r["counts"].sum(0), data_groups))
+        mean_p = tp.sum_over(r["probs"].sum(dim=(0, 1)), data_groups) / n
+    frac = total.to(torch.float32) / (n * k)
+    aux = e * torch.sum(frac * mean_p)
     return out, aux
 
 
@@ -235,10 +331,12 @@ def moe_apply(p: MoE, cfg, x, with_aux: bool = False):
     the experts over ``model`` (the reference's condition, ``moe.py:75-88``;
     decode steps have too few tokens).  Otherwise grouped dispatch
     (G = ``cfg.moe_groups``) when ``moe_groups > 1`` or ``moe_impl ==
-    "grouped"``, global (G = 1) else."""
+    "grouped"``, global (G = 1) else, of this rank's rows
+    (``_moe_apply_grouped``)."""
     ctx = current_ctx()
     sizes = mesh_shape(ctx.mesh) if ctx is not None else {}
-    dsh = math.prod(sizes.get(a, 1) for a in DATA_AXES)
+    rows = tp.row_axes(sizes) if ctx is not None else ()
+    dsh = math.prod(sizes[a] for a in rows)
     if cfg.moe_impl == "a2a" and sizes.get(MODEL_AXIS, 1) > 1:
         # x holds one data shard's rows: the batch has dsh times its tokens
         n = x.shape[0] * x.shape[1] * dsh
@@ -247,45 +345,13 @@ def moe_apply(p: MoE, cfg, x, with_aux: bool = False):
             return moe_apply_a2a(p, cfg, x, ctx.mesh, with_aux)
     grouped = cfg.moe_groups > 1 or cfg.moe_impl == "grouped"
     groups = cfg.moe_groups if grouped else 1
-    if dsh == 1:
-        return _moe_apply_grouped(p, cfg, x, groups, with_aux)
-    # route the whole batch: gather the data shards' rows (major axis last,
-    # so pod-major row order), keep this rank's rows of the output
-    whole = x
-    for a in reversed(DATA_AXES):
-        if a in sizes:
-            whole = _all_gather(whole, ctx.mesh.get_group(a))
-    out = _moe_apply_grouped(p, cfg, whole, groups, with_aux)
-    row = 0
-    for a in DATA_AXES:
-        if a in sizes:
-            row = row * sizes[a] + ctx.mesh.get_local_rank(a)
-    b = x.shape[0]
-    if with_aux:
-        return out[0][row * b:(row + 1) * b], out[1]
-    return out[row * b:(row + 1) * b]
+    return _moe_apply_grouped(p, cfg, x, groups, with_aux,
+                              None if ctx is None else ctx.mesh, rows)
 
 
 # ---------------------------------------------------------------------------
 # Explicit all-to-all expert parallelism — the reference's shard_map body
 # ---------------------------------------------------------------------------
-
-
-class _CopyToGroup(torch.autograd.Function):
-    """Forward: the identity on a tensor every rank of ``group`` holds
-    whole; backward: the sum of the ranks' gradients (``shard_map``'s psum
-    of an input replicated over an axis)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -305,9 +371,10 @@ class _MeanOverMesh(torch.autograd.Function):
     """Forward: the mean of a 0-d tensor over ``model`` and then each data
     axis (the reference's pmeans); backward: the gradient over the ``model``
     size.  Every rank's loss carries the same mean; the router's gradient is
-    summed over ``model`` (``_CopyToGroup``) and the step averages over data,
-    so each rank's own term takes 1/model of the cotangent: the reference's
-    1/(all ranks) once the data average is taken."""
+    summed over ``model`` (``tp.take(..., partial=True)``) and the step
+    averages over data, so each rank's own term takes 1/model of the
+    cotangent: the reference's 1/(all ranks) once the data average is
+    taken."""
 
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -360,15 +427,16 @@ def moe_apply_a2a(p: MoE, cfg, x, mesh, with_aux: bool = False,
     outputs.  The reference's ``shard_map`` body (``moe.py:259-363``) on one
     rank of a ``DeviceMesh``.
 
+    Runs in a split step over ``mesh`` (``distribution/tensor_parallel.py``):
     ``x`` (b, s, d) is this rank's data shard, the same on every rank of its
-    ``model`` group; ``p`` holds every expert (the sharded step gathers the
-    weights).  Rank j of the ``model`` group (jax's ``axis_index``) routes
+    ``model`` group, and ``p``'s experts are this rank's, as its weights are
+    stored.  Rank j of the ``model`` group (jax's ``axis_index``) routes
     tokens [j·t_loc, (j+1)·t_loc) of the shard and runs experts [j·e_loc,
     (j+1)·e_loc); an all-gather over ``model`` reassembles the shard's
     output.  Gradients follow ``shard_map``'s transpose: the inputs
-    replicated over ``model`` (tokens, router, the expert slices of the whole
-    weights) sum their gradients over it, the output's cotangent is divided
-    by the ``model`` size before the all-gather's backward sums it."""
+    replicated over ``model`` (tokens, router) sum their gradients over it,
+    the output's cotangent is divided by the ``model`` size before the
+    all-gather's backward sums it."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     sizes = mesh_shape(mesh)
@@ -378,6 +446,9 @@ def moe_apply_a2a(p: MoE, cfg, x, mesh, with_aux: bool = False,
     if n_loc % msh or e % msh:
         raise ValueError(f"{n_loc} tokens or {e} experts do not split over "
                          f"a model axis of {msh}")
+    if tp.model_rank()[1] != msh:
+        raise ValueError("moe_apply_a2a runs in a split step over its mesh "
+                         "(tensor_parallel.use_split)")
     t_loc = n_loc // msh
     e_loc = e // msh
     cap_send = max(-(-int(t_loc * k * cfg.capacity_factor) // msh) // 8 * 8, 8)
@@ -385,13 +456,9 @@ def moe_apply_a2a(p: MoE, cfg, x, mesh, with_aux: bool = False,
     group = mesh.get_group(model_axis)
     j = mesh.get_local_rank(model_axis)
 
-    def mine(w, dim):   # this rank's slice of a tensor replicated over model
-        w = _CopyToGroup.apply(w, group)
-        return w.narrow(dim, j * (w.shape[dim] // msh), w.shape[dim] // msh)
-
-    xt = mine(x.reshape(n_loc, d), 0)
-    router = _CopyToGroup.apply(p.router, group)
-    gate, up, down = (mine(w, 1) for w in (p.gate, p.up, p.down))
+    xt = tp.copy_in(x.reshape(n_loc, d)).narrow(0, j * t_loc, t_loc)
+    router = tp.take(p.router, partial=True)
+    gate, up, down = (tp.take(w, 1) for w in (p.gate, p.up, p.down))
 
     probs = torch.softmax(xt.to(torch.float32) @ router, dim=-1)
     top_w, top_e = torch.topk(probs, k, dim=-1)

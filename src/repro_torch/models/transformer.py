@@ -33,6 +33,17 @@ products' outputs, ``"none"`` everything), as the reference's
 ``jax.checkpoint`` does.  ``param_specs`` is the reference's logical-axis
 tree, stacked axes included; ``param_axes`` gives each port parameter its
 own axes (the tree's leaf at ``jax_path(name)`` without the stacked ones).
+
+In a split step (the sharded train step, the dry run's steps;
+``distribution/tensor_parallel.py``) each layer function gathers its layer's
+weights over the data axes inside the function remat checkpoints, so the
+recompute gathers them again; the model's own weights (the embedding, the
+head, the final norms) are gathered for the pass.  The lookup and the logits
+split the vocab over ``model`` (``forward`` then returns this rank's vocab
+chunk), attention its heads, the MLPs their ffn and the MoE its experts;
+rwkv6's and mamba2's layers are gathered whole over ``model`` too and
+computed the same on every rank of the model group (ROADMAP queue 1 item
+9d).
 """
 from __future__ import annotations
 
@@ -42,13 +53,16 @@ import functools
 import torch
 from torch import nn
 
+from repro_torch.distribution import sharding as shd
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.common import (
     EMBED, FFN, VOCAB, SwiGLU, dense_init, embed_init, frozen_param, gelu_mlp,
-    jax_path, layer_norm, mlp_specs, prepend_layers_axis, rms_norm, swiglu,
+    island_dtype, jax_path, layer_norm, mlp_specs, prepend_layers_axis,
+    rms_norm, swiglu,
 )
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
@@ -74,10 +88,25 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _gathered(fn, whole: bool = False):
+    """``fn(layer, ...)`` with the layer's parameters gathered over the
+    data axes for the call (``whole``: over ``model`` too) in a split step
+    (``distribution/tensor_parallel.py``); ``fn`` itself otherwise."""
+
+    def run(lp, *args, **kwargs):
+        with tp.gather_params(lp, whole=whole):
+            return fn(lp, *args, **kwargs)
+
+    return run
+
+
 def _remat(fn, cfg):
     """``fn`` recomputed in the backward by ``cfg.remat_policy`` (``"none"``
     when ``cfg.remat`` is off) when the pass records a gradient; as it is
-    otherwise (scoring and serving run under inference mode)."""
+    otherwise (scoring and serving run under inference mode).  The
+    recompute runs with the sharding and split-step contexts the call saw
+    (autograd runs a CUDA backward in its own thread), so a layer wrapped
+    by ``_gathered`` gathers its weights again."""
     policy = cfg.remat_policy if cfg.remat else "none"
     if policy == "none" or not torch.is_grad_enabled():
         return fn
@@ -93,13 +122,23 @@ def _remat(fn, cfg):
             create_selective_checkpoint_contexts, _save_dots)
 
     def run(*args, **kwargs):
-        return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
+        split, sharding = tp.current(), shd.current_ctx()
+
+        def body(*a, **k):
+            with tp.restored(split), (
+                    contextlib.nullcontext() if sharding is None
+                    else shd.use_sharding(sharding.mesh, sharding.param_rules,
+                                          sharding.act_rules)):
+                return fn(*a, **k)
+
+        return checkpoint(body, *args, use_reentrant=False, **kw, **kwargs)
 
     return run
 
 
 def _dtype(cfg) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(cfg.dtype, torch.float32)
 
 
 class DecoderLayer(nn.Module):
@@ -212,7 +251,7 @@ def _decoder_stack(params: DenseLM, cfg, x, *, positions=None, caches=None,
     with_aux also returns the summed MoE load-balancing loss."""
     new_caches = None if caches is None else []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    body = _remat(_layer_apply, cfg)
+    body = _remat(_gathered(_layer_apply), cfg)
     for i, lp in enumerate(params.layers):
         out = body(lp, cfg, x, positions=positions,
                    cache=None if caches is None else caches[i],
@@ -232,7 +271,7 @@ def _vlm_stack(params: VisionLM, cfg, x, *, positions=None, caches=None,
     projects k and v from ``cross_states`` at every call, decode steps
     included, as the reference does."""
     new_caches = None if caches is None else []
-    body = _remat(_layer_apply, cfg)
+    body = _remat(_gathered(_layer_apply), cfg)
     for g, gp in enumerate(params.groups):
         self_caches = None if caches is None else caches[g]["self"]
         new_self = None if caches is None else []
@@ -249,11 +288,27 @@ def _vlm_stack(params: VisionLM, cfg, x, *, positions=None, caches=None,
     return x, new_caches
 
 
+def _vocab_product(h, w, vocab_dim: int):
+    """fp32 ``h @ w`` (``w.T`` where its vocab is dim 0), as the
+    reference's fp32-accumulating product gives; with ``vocab`` split over
+    ``model``, this rank's chunk of the vocab (``train_step.lm_loss`` takes
+    it so)."""
+    if tp.split(VOCAB, tp.full_size(w, vocab_dim)):
+        h, w = tp.copy_in(h), tp.take(w, vocab_dim)
+    else:
+        w = tp.take(w)
+    if vocab_dim == 0:
+        w = w.T
+    dt = island_dtype(h.dtype)
+    return h.to(dt) @ w.to(dt)
+
+
 def _logits(params, cfg, h):
-    """fp32 logits, as the reference's fp32-accumulating product gives."""
+    """fp32 logits (this rank's vocab chunk in a split step)."""
     h = rms_norm(h, params.final_norm)
-    w = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return h.to(torch.float32) @ w.to(torch.float32)
+    if cfg.tie_embeddings:
+        return _vocab_product(h, params.embed, 0)
+    return _vocab_product(h, params.lm_head, 1)
 
 
 class _Lookup(torch.autograd.Function):
@@ -262,24 +317,42 @@ class _Lookup(torch.autograd.Function):
     backward adds a token's rows one by one in bf16 (the reference's
     ``jnp.take`` does too on the CPU), so a token repeated a thousand times,
     as SyntheticLM's most frequent ones are in a 4096-token row, gets a
-    gradient off by about a tenth of the table's max."""
+    gradient off by about a tenth of the table's max.  ``keep`` (a mask of
+    the tokens' shape) zeroes the rows of the tokens it leaves out, and
+    their gradients."""
 
     @staticmethod
-    def forward(ctx, table, tokens):
-        ctx.save_for_backward(tokens)
+    def forward(ctx, table, tokens, keep=None):
+        ctx.save_for_backward(tokens, keep)
         ctx.rows = table.shape[0]
-        return table[tokens]
+        rows = table[tokens]
+        return rows if keep is None else torch.where(keep[..., None], rows, 0)
 
     @staticmethod
     def backward(ctx, g):
-        (tokens,) = ctx.saved_tensors
+        tokens, keep = ctx.saved_tensors
+        gf = g.to(island_dtype(g.dtype))
+        if keep is not None:
+            gf = torch.where(keep[..., None], gf, 0)
         grad = torch.ops.aten.embedding_dense_backward(
-            g.to(torch.float32), tokens, ctx.rows, -1, False)
-        return grad.to(g.dtype), None
+            gf, tokens, ctx.rows, -1, False)
+        return grad.to(g.dtype), None, None
 
 
 def _embed(params, cfg, tokens):
-    return _Lookup.apply(params.embed, tokens)
+    """The lookup.  With ``vocab`` split over ``model`` each rank looks up
+    the tokens in its rows of the table (zeros for the others) and one
+    all-reduce over ``model`` sums them."""
+    table = params.embed
+    vocab = tp.full_size(table, 0)
+    if not tp.split(VOCAB, vocab):
+        return _Lookup.apply(tp.take(table), tokens)
+    j, m = tp.model_rank()
+    rows = vocab // m
+    local = tokens - j * rows
+    keep = (local >= 0) & (local < rows)
+    out = _Lookup.apply(tp.take(table, 0), torch.where(keep, local, 0), keep)
+    return tp.reduce_out(out)
 
 
 def _tokens(params, tokens) -> torch.Tensor:
@@ -367,7 +440,7 @@ def _rwkv_stack(params: RWKVLM, cfg, x, caches=None):
     zero = None if caches is not None else _rwkv_zero_state(
         cfg, x.shape[0], x.device)
     new_caches = None if caches is None else []
-    body = _remat(_rwkv_layer_apply, cfg)
+    body = _remat(_gathered(_rwkv_layer_apply, whole=True), cfg)
     for i, lp in enumerate(params.layers):
         x, st = body(lp, cfg, x, zero if caches is None else caches[i])
         if new_caches is not None:
@@ -422,8 +495,8 @@ def _hybrid_stack(params: HybridLM, cfg, x, *, positions=None, cache=None):
     new = None if cache is None else {
         "layers": [], "shared": list(cache["shared"]),
         "idx": cache["idx"] + x.shape[1]}
-    mamba_body = _remat(_mamba_layer_apply, cfg)
-    shared_body = _remat(_layer_apply, cfg)
+    mamba_body = _remat(_gathered(_mamba_layer_apply, whole=True), cfg)
+    shared_body = _remat(_gathered(_layer_apply), cfg)
     for i, lp in enumerate(params.layers):
         lc = None if cache is None else cache["layers"][i]
         h, state, tail = mamba_body(
@@ -520,19 +593,15 @@ class WhisperLM(nn.Module):
 
 
 def _bidir_attn(p: attn.GQAAttention, cfg, x):
-    """Bidirectional self-attention (the whisper encoder: a box domain)."""
-    b, s, _ = x.shape
-    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    o = attn._sdpa(attn.heads(x, p.wq, h, hd),
-                   attn.heads(x, p.wk, hk, hd),
-                   attn.heads(x, p.wv, hk, hd), hk, q_pos=None)
-    return o.reshape(b, s, h * hd) @ p.wo
+    """Bidirectional self-attention (the whisper encoder: a box domain):
+    the cross path of ``gqa_apply`` with k and v projected from x."""
+    return attn.gqa_apply(p, cfg, x, cross_kv=x)[0]
 
 
 def _whisper_encode(params: WhisperLM, cfg, frames):
     """frames: (B, T_enc, d) stub embeddings -> encoder states."""
     x = frames + params.enc_pos[None, :frames.shape[1]]
-    body = _remat(_whisper_enc_layer, cfg)
+    body = _remat(_gathered(_whisper_enc_layer), cfg)
     for lp in params.enc_layers:
         x = body(lp, cfg, x)
     return layer_norm(x, params.enc_norm_w, params.enc_norm_b)
@@ -544,21 +613,12 @@ def _whisper_enc_layer(lp: WhisperEncLayer, cfg, x):
                         lp.mlp.down)
 
 
-def _cached_cross(p: attn.GQAAttention, cfg, x, xk, xv):
-    """Cross-attention against k, v projected once at prefill."""
-    b, s, _ = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
-    o = attn._sdpa(attn.heads(x, p.wq, h, hd), xk, xv, cfg.n_kv_heads,
-                   q_pos=None)
-    return o.reshape(b, s, h * hd) @ p.wo
-
-
 def _whisper_dec_stack(params: WhisperLM, cfg, x, enc_states, *,
                        positions=None, caches=None, cross=None):
     """``enc_states`` for a cache-less forward; ``cross`` ({k, v}, each
     (L, B, T_enc, Hk, hd), projected at prefill) against a cache."""
     new_caches = None if caches is None else []
-    body = _remat(_whisper_dec_layer, cfg)
+    body = _remat(_gathered(_whisper_dec_layer), cfg)
     for i, lp in enumerate(params.dec_layers):
         x, c = body(lp, cfg, x, enc_states, positions,
                     None if caches is None else caches[i],
@@ -578,7 +638,7 @@ def _whisper_dec_layer(lp: WhisperDecLayer, cfg, x, enc_states, positions,
     x = x + h
     nx = layer_norm(x, lp.lnx_w, lp.lnx_b)
     if cross_kv is not None:
-        x = x + _cached_cross(lp.xattn, cfg, nx, *cross_kv)
+        x = x + attn.cached_cross(lp.xattn, cfg, nx, *cross_kv)
     else:
         x = x + attn.gqa_apply(lp.xattn, cfg, nx, cross_kv=enc_states)[0]
     x = x + gelu_mlp(layer_norm(x, lp.ln2_w, lp.ln2_b), lp.mlp.up,
@@ -592,14 +652,15 @@ def _whisper_cross(params: WhisperLM, cfg, enc_states, cross):
     place."""
     hk, hd = cfg.n_kv_heads, cfg.head_dim
     for i, lp in enumerate(params.dec_layers):
-        cross["k"][i] = attn.heads(enc_states, lp.xattn.wk, hk, hd)
-        cross["v"][i] = attn.heads(enc_states, lp.xattn.wv, hk, hd)
+        with tp.gather_params(lp.xattn, whole=True):
+            cross["k"][i] = attn.heads(enc_states, lp.xattn.wk, hk, hd)
+            cross["v"][i] = attn.heads(enc_states, lp.xattn.wv, hk, hd)
     return cross
 
 
 def _whisper_logits(params: WhisperLM, cfg, x):
     h = layer_norm(x, params.final_norm, params.final_norm_b)
-    return h.to(torch.float32) @ params.lm_head.to(torch.float32)
+    return _vocab_product(h, params.lm_head, 1)
 
 
 def _stack(params, cfg, x, *, positions=None, caches=None, extra=None):
@@ -847,14 +908,17 @@ def init_params(cfg, generator: torch.Generator | None = None,
 
 def forward(params, cfg, tokens, extra=None, positions=None,
             with_aux: bool = False):
-    """Teacher-forced logits (B, S, padded_vocab) fp32.  ``extra``: the vlm
-    family's vision states or the audio family's frames, (B, T, d).
+    """Teacher-forced logits (B, S, padded_vocab) fp32 (in a split step
+    with ``vocab`` split over ``model``, this rank's chunk of the vocab).
+    ``extra``: the vlm family's vision states or the audio family's frames,
+    (B, T, d).
 
     with_aux=True returns (logits, moe_aux_loss): the MoE layers' summed
     load-balancing loss in the moe family, 0 for the others."""
     require_ported(cfg)
     aux = None
-    with _no_grad_unless_asked(params):
+    with _no_grad_unless_asked(params), \
+            tp.gather_params(params, recurse=False):
         tokens = _tokens(params, tokens)
         extra = _extra(params, extra)
         x = _embed(params, cfg, tokens)
@@ -927,7 +991,8 @@ def prefill(params, cfg, tokens, extra=None, cache=None):
         cache = init_cache(cfg, b, cfg.max_seq,
                            0 if extra is None else extra.shape[1],
                            device=_device(params))
-    with _no_grad_unless_asked(params):
+    with _no_grad_unless_asked(params), \
+            tp.gather_params(params, recurse=False):
         positions = torch.arange(s, device=tokens.device)[None, :]
         x = _embed(params, cfg, tokens)
         if cfg.family == "audio":
@@ -963,7 +1028,8 @@ def decode_step(params, cfg, token, cache, extra=None):
     require_ported(cfg)
     token = _tokens(params, token)
     b = token.shape[0]
-    with _no_grad_unless_asked(params):
+    with _no_grad_unless_asked(params), \
+            tp.gather_params(params, recurse=False):
         positions = None
         if cfg.family != "ssm":
             positions = torch.full((b, 1), _cache_idx(cfg, cache),

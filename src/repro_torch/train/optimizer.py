@@ -80,11 +80,18 @@ def decays(p: torch.Tensor) -> bool:
     return p.ndim >= 2
 
 
+def norms(tensors: list) -> list:
+    """Each tensor's 2-norm as a 0-d fp32 tensor, taken in fp32 (in
+    float64 for float64 tensors, then rounded)."""
+    if tensors and tensors[0].dtype == torch.float64:
+        return [n.to(torch.float32) for n in torch._foreach_norm(tensors, 2)]
+    return torch._foreach_norm(tensors, 2, dtype=torch.float32)
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor, in fp32."""
     grads = list(grads.values()) if isinstance(grads, dict) else list(grads)
-    norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack(norms(grads)))
 
 
 def _groups(names: list, named: dict):

@@ -8,51 +8,51 @@ moments ``m`` and ``v``, out as DTensors with the placements of
 holds only its shard between steps.  ``step`` stays a plain 0-d tensor that
 every rank holds.
 
-Compute.  A step gathers the whole model (``full_tensor()``), runs the
-single-device forward and backward (``train_step.make_grads_fn``, the
-kernels included) on this rank's rows of each microbatch, averages the
-gradients over the data axes, takes this rank's shard of each, clips them by
-the global norm (each element counted once: a shard replicated over some
-mesh dims counts on the rank at coordinate 0 of each) and updates the shards
-in place.  The rows: each microbatch is cut from the global batch as the
-single-device step cuts it, then split over the data axes present as
-``ACT_RULES["batch"]`` says; ranks along ``model`` take the same rows.
-``lm_loss`` normalises by the mask's sum over the rows it sees.  With no
-mask and equal rows on every rank, the mean of the ranks' means is the
-batch's mean, so the averaged gradients and metrics are the single-device
-step's; a masked batch is refused.
+Compute.  A step is a split step (``distribution/tensor_parallel.py``):
+the forward and backward (``train_step.make_grads_fn``, the kernels
+included) run on this rank's rows of each microbatch with the parameters as
+this rank's blocks.  Each layer gathers its weights over the data axes
+inside the function remat checkpoints, so the recompute gathers them again,
+and each microbatch gathers again.  Along ``model`` the products are split
+where ``resolve_spec`` splits the axis: heads (``wq``, ``wo``; MLA's
+``wuq``, ``wuk``, ``wuv``), ffn (the MLPs), vocab (the lookup, the logits
+and the cross entropy) and experts (the MoE's global, grouped and a2a
+dispatch); a width that does not divide the ``model`` size is computed
+whole on every rank of the model group.  rwkv6's mixes and mamba2's layers
+are not split: their weights are gathered whole over ``model`` too and
+their compute is replicated along it (ROADMAP queue 1 item 9d).  The rows:
+each microbatch is cut from the global batch as the single-device step
+cuts it, then split over the data axes present as ``ACT_RULES["batch"]``
+says; ranks along ``model`` take the same rows.  ``lm_loss`` normalises by
+the mask's sum over the rows it sees.  With no mask and equal rows on every
+rank, the mean of the ranks' means is the batch's mean, so the averaged
+gradients and metrics are the single-device step's; a masked batch is
+refused.
 
-Compute along ``model`` is replicated: every rank of a model group runs the
-same forward and backward on the same rows, where the reference's GSPMD
-splits heads, ffn, vocab and experts into real split products (ROADMAP
-queue 1 item 9c).  Only ``moe_impl="a2a"`` splits work over ``model``
-(``models/moe.py``).  Every activation is a plain rank-local tensor, so
-``logical_constraint`` leaves it as it is.  The gradient's mean over data
-is an all-reduce of each whole gradient, then a slice.
+Gradients.  Each arrives as this rank's block: the gather's backward
+reduce-scatters it over the data axes (the mean over the data ranks in one
+collective), and a weight's gradient along ``model`` is its own chunk's.
+The step clips them by the global norm (each element counted once: a block
+replicated over some mesh dims counts on the rank at coordinate 0 of each)
+and updates the blocks in place.
 
-Memory.  The shards save memory between steps only.  Within a step each
-rank holds the whole weights gathered, the whole gradients and its shards,
-so its peak is the single-device step's plus one gathered copy of the
-weights; the global and grouped MoE dispatch also route every data rank's
-tokens on every rank (``models/moe.py``).  A model whose whole weights and
-gradients do not fit one card (deepseek-v2-236b on ``--production-mesh``)
-cannot train here until the gather is per layer and the gradient mean a
-reduce-scatter (ROADMAP queue 1 item 9c).
+Memory.  Within a step a rank holds its shards, one layer's weights
+gathered over the data axes, its gradients' blocks and the activations:
+the whole model is never gathered.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 
 import torch
 import torch.distributed as dist
-from torch import nn
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import Shard
 
 from repro_torch.distribution import sharding as shd
+from repro_torch.distribution import tensor_parallel as tp
+from repro_torch.distribution.tensor_parallel import DATA_AXES
 from repro_torch.models import transformer as T
-from repro_torch.models.moe import DATA_AXES
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import TrainConfig, make_grads_fn
 
@@ -90,25 +90,6 @@ def shard_(params, cfg, mesh):
     return params, opt_state
 
 
-@contextlib.contextmanager
-def gathered(model: nn.Module):
-    """Within the block the model's DTensor parameters are whole plain
-    tensors (one all-gather each); the DTensors are back after it."""
-    saved = []
-    with torch.no_grad():
-        for name, p in list(model.named_parameters()):
-            if isinstance(p, DTensor):
-                mod, leaf = shd.owner(model, name)
-                saved.append((mod, leaf, p))
-                mod._parameters[leaf] = nn.Parameter(p.full_tensor(),
-                                                     requires_grad=False)
-    try:
-        yield model
-    finally:
-        for mod, leaf, p in saved:
-            mod._parameters[leaf] = p
-
-
 def shard_rows(batch: dict, mesh) -> dict:
     """This rank's rows of every array of ``batch``: the leading ``batch``
     dim split over the data axes ``ACT_RULES`` name, major axis first.
@@ -143,8 +124,7 @@ def global_norm(shards: dict, named: dict, mesh) -> torch.Tensor:
     of its counted shards' norms, as ``optimizer.global_norm`` does, and
     the ranks sum its square: on one rank that is the single-device norm,
     bit for bit (a square's square root gives the number back)."""
-    norms = torch._foreach_norm(list(shards.values()), 2,
-                                dtype=torch.float32)
+    norms = opt.norms(list(shards.values()))
     local = torch.linalg.vector_norm(torch.stack([
         n if _owns(mesh, named[k].placements) else torch.zeros_like(n)
         for k, n in zip(shards, norms)]))
@@ -173,17 +153,12 @@ def make_sharded_train_step(cfg, tcfg: TrainConfig, mesh):
         if batch.get("mask") is not None:
             raise ValueError("the sharded step takes no mask: each rank "
                              "normalises by its own rows")
-        with shd.use_sharding(mesh), gathered(params):
+        with shd.use_sharding(mesh), tp.use_split(params, mesh):
             loss, metrics, grads = grads_of(params, batch)
         named = dict(params.named_parameters())
         with torch.no_grad():
-            shards = {}
-            for n in list(grads):
-                g = data_mean_(grads.pop(n).contiguous())
-                block = shd.local_shard(g, mesh, named[n].placements)
-                shards[n] = block.clone() if block.numel() != g.numel() \
-                    else block
-                del g, block
+            shards = {n: g.contiguous() for n, g in grads.items()}
+            del grads
             keys = list(metrics)
             vals = data_mean_(torch.stack([loss, *metrics.values()]))
             loss, metrics = vals[0], dict(zip(keys, vals[1:]))

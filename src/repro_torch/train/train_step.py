@@ -17,7 +17,9 @@ import dataclasses
 
 import torch
 
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models import transformer as T
+from repro_torch.models.common import VOCAB, island_dtype
 from repro_torch.train import optimizer as opt
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +32,27 @@ class TrainConfig:
     grad_compression: bool = False   # int8 cross-pod all-reduce (unread)
 
 
+def _lse_and_label_logit(logits, labels, vocab: int):
+    """The logsumexp over the vocab and the label's logit, (B, S) each.
+    With ``vocab`` split over ``model`` (the sharded step) ``logits`` is
+    this rank's chunk of the vocab: the max and the sum of exps are
+    all-reduced over ``model``, and the label's logit is read on the rank
+    that holds it."""
+    if not tp.split(VOCAB, vocab):
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels[..., None])[..., 0])
+    j, _ = tp.model_rank()
+    rows = logits.shape[-1]
+    mx = tp.model_max(logits.detach().amax(dim=-1))
+    lse = mx + torch.log(tp.reduce_out(
+        torch.exp(logits - mx[..., None]).sum(dim=-1)))
+    local = labels - j * rows
+    keep = (local >= 0) & (local < rows)
+    picked = torch.gather(logits, -1,
+                          torch.where(keep, local, 0)[..., None])[..., 0]
+    return lse, tp.reduce_out(torch.where(keep, picked, 0.0))
+
+
 def lm_loss(params, cfg, batch, z_loss_coef=1e-4, moe_aux_coef=1e-2):
     """Next-token cross entropy; labels = tokens shifted by the data layer.
 
@@ -38,9 +61,8 @@ def lm_loss(params, cfg, batch, z_loss_coef=1e-4, moe_aux_coef=1e-2):
                             with_aux=True)
     labels = torch.as_tensor(batch["labels"], dtype=torch.int64,
                              device=logits.device)
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    logits = logits.to(island_dtype(logits.dtype))
+    lse, picked = _lse_and_label_logit(logits, labels, cfg.padded_vocab)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(labels, dtype=torch.float32)

@@ -9,8 +9,10 @@ one fault fails its tests only).  It imports torch and the port, never JAX,
 so a rank starts fast."""
 from __future__ import annotations
 
+import functools
 import os
 import pickle
+import threading
 import traceback
 from types import SimpleNamespace
 
@@ -18,10 +20,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.distribution import compression as comp
 from repro_torch.distribution import sharding as shd
+from repro_torch.distribution import tensor_parallel as tp
+from repro_torch.models import common
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.common import jax_path
@@ -33,7 +38,7 @@ from repro_torch.train.data import DataConfig, SyntheticLM
 from repro_torch.train.fault_tolerance import (
     InjectedFailure, ResilientLoop, elastic_restore,
 )
-from repro_torch.train.train_step import TrainConfig
+from repro_torch.train.train_step import TrainConfig, make_grads_fn
 
 SEQ = 32
 BATCH = 4
@@ -46,31 +51,75 @@ STEP_CASES = {
     "moonshot_a2a": ("moonshot-v1-16b-a3b",
                      dict(moe_impl="a2a", capacity_factor=8.0), 1, 2, 0.0),
     "moonshot_global": ("moonshot-v1-16b-a3b", {}, 1, 2, 1e-2),
+    # 2 groups: each data rank's own at (2, 2), each over 2 data ranks at
+    # (4, 1)
+    "moonshot_grouped": ("moonshot-v1-16b-a3b", dict(moe_groups=2), 1, 2,
+                         1e-2),
+    "deepseek": ("deepseek-v2-236b", {}, 1, 2, 1e-2),
+    # 12 q heads in 3 groups of 4: at model 2 or 4 a rank's q heads cover
+    # part of a group (the kv heads expanded per q head)
+    "yi_part_groups": ("yi-6b", dict(n_heads=12, n_kv_heads=3, head_dim=8),
+                       1, 2, 1e-2),
 }
+#: the other families, whose first batch's gradients are held on every
+#: mesh: rwkv6's and mamba2's layers computed whole along model, zamba2's
+#: shared block, whisper's encoder and cross-attention and the vlm's cross
+#: layers split
+FAMILY_CASES = {
+    "rwkv": ("rwkv6-3b", {}, 1, 2, 1e-2),
+    "zamba": ("zamba2-1.2b", {}, 1, 2, 1e-2),
+    "whisper": ("whisper-medium", {}, 1, 2, 1e-2),
+    "vlm": ("llama-3.2-vision-11b", {}, 1, 2, 1e-2),
+}
+CASES = {**STEP_CASES, **FAMILY_CASES}
+#: step cases whose steps run in float64 (their gradients are held in fp32
+#: too): see ``tests/test_torch_distributed.py``'s docstring
+FLOAT64_STEPS = ("yi",)
+#: the (data, model) meshes every case runs on
+MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}
 
 
 def tcfg_for(case: str) -> TrainConfig:
     """The optimizer ``launch.train`` builds for a run of this many
     steps."""
-    _, _, mb, steps, aux = STEP_CASES[case]
+    _, _, mb, steps, aux = CASES[case]
     return TrainConfig(optimizer=opt.OptimizerConfig(
         lr=3e-4, warmup_steps=max(steps // 20, 5), total_steps=steps),
         microbatches=mb, moe_aux_coef=aux)
 
 
-def cfg_for(case: str):
-    arch, over, *_ = STEP_CASES[case]
-    return get_smoke_config(arch).replace(**over)
+def cfg_for(case: str, step: bool = False):
+    """The case's smoke config; ``step``: as its step runs."""
+    arch, over, *_ = CASES[case]
+    cfg = get_smoke_config(arch).replace(**over)
+    if step and case in FLOAT64_STEPS:
+        cfg = cfg.replace(dtype="float64")
+    return cfg
 
 
 def model_for(cfg, seed: int = 0):
     return T.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
 
 
-def batch_at(cfg, step: int) -> dict:
+def rows_for(case: str, mesh: str) -> int:
+    """The global batch of a case on a mesh: BATCH rows, or as many as
+    its microbatches need to split over the data ranks."""
+    return max(BATCH, CASES[case][2] * MESHES[mesh][0])
+
+
+def batch_at(cfg, step: int, rows: int = BATCH) -> dict:
+    """SyntheticLM's batch, with seeded vision states or frames where the
+    family takes them (``launch.train``'s)."""
     b = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
-                               global_batch=BATCH)).batch_at(step)
-    return {k: torch.from_numpy(v) for k, v in b.items()}
+                               global_batch=rows)).batch_at(step)
+    out = {k: torch.from_numpy(v) for k, v in b.items()}
+    if cfg.family in ("vlm", "audio"):
+        n = cfg.vision_seq if cfg.family == "vlm" else cfg.encoder_seq
+        out["extra"] = torch.from_numpy(np.random.default_rng(step)
+                                        .standard_normal((rows, n, cfg.d_model),
+                                                         dtype=np.float32)
+                                        * 0.1)
+    return out
 
 
 def _whole(t) -> np.ndarray:
@@ -93,7 +142,9 @@ def _metrics(m: dict) -> dict:
     return {k: float(v) for k, v in m.items()}
 
 
-def case_steps(mesh22, out):
+def case_steps(meshes, out):
+    """Every step case on every mesh: metrics, the whole state after its
+    steps, the a2a dispatch's calls, each parameter's block."""
     a2a = moe_mod.moe_apply_a2a
     calls = []
 
@@ -102,24 +153,110 @@ def case_steps(mesh22, out):
         return a2a(*args, **kwargs)
 
     for case in STEP_CASES:
-        cfg, tcfg = cfg_for(case), tcfg_for(case)
-        model, state = sharded.shard_(model_for(cfg), cfg, mesh22)
-        step = sharded.make_sharded_train_step(cfg, tcfg, mesh22)
-        metrics = []
-        calls.clear()
-        moe_mod.moe_apply_a2a = counted
-        try:
-            for s in range(STEP_CASES[case][3]):
-                model, state, m = step(model, state, batch_at(cfg, s))
-                metrics.append(_metrics(m))
-        finally:
-            moe_mod.moe_apply_a2a = a2a
-        res = {"metrics": metrics, **whole_state(model, state),
-               "a2a_calls": len(calls),
-               "local": {n: (tuple(p.to_local().shape), repr(p.placements))
-                         for n, p in model.named_parameters()},
-               "coord": mesh22.get_coordinate()}
-        out["steps/" + case] = res
+        for name, mesh in meshes.items():
+            cfg, tcfg = cfg_for(case, step=True), tcfg_for(case)
+            rows = rows_for(case, name)
+            model, state = sharded.shard_(model_for(cfg), cfg, mesh)
+            step = sharded.make_sharded_train_step(cfg, tcfg, mesh)
+            metrics = []
+            calls.clear()
+            moe_mod.moe_apply_a2a = counted
+            try:
+                for s in range(STEP_CASES[case][3]):
+                    model, state, m = step(model, state,
+                                           batch_at(cfg, s, rows))
+                    metrics.append(_metrics(m))
+            finally:
+                moe_mod.moe_apply_a2a = a2a
+            res = {"metrics": metrics, **whole_state(model, state),
+                   "a2a_calls": len(calls),
+                   "local": {n: (tuple(p.to_local().shape),
+                                 repr(p.placements))
+                             for n, p in model.named_parameters()},
+                   "coord": mesh.get_coordinate()}
+            out[f"steps/{case}/{name}"] = res
+
+
+def _whole_block(g, w: DTensor) -> np.ndarray:
+    """A gradient block of parameter ``w`` gathered whole (every rank
+    takes part)."""
+    return _whole(DTensor.from_local(
+        g.contiguous(), w.device_mesh, w.placements, run_check=False,
+        shape=w.shape, stride=w.stride()))
+
+
+def split_grads(cfg, tcfg, model, batch, mesh):
+    """The split step's gradients of one batch, each gathered whole (every
+    rank takes part), and the MoE drops of each dispatch on this rank."""
+    grads_of = make_grads_fn(cfg, tcfg, local=functools.partial(
+        sharded.shard_rows, mesh=mesh))
+    with moe_mod.record_routing() as rec, shd.use_sharding(mesh), \
+            tp.use_split(model, mesh):
+        _, _, grads = grads_of(model, batch)
+    named = dict(model.named_parameters())
+    whole = {n: _whole_block(g, named[n]) for n, g in grads.items()}
+    return whole, [int((~r["keep"]).sum()) for r in rec]
+
+
+def case_grads(meshes, out):
+    """Every case's first-batch gradients on every mesh (held before the
+    optimizer, where fp32 rounding is not amplified), with the MoE drops;
+    then the control: yi on (1, 4) with the MLPs' row-parallel all-reduce
+    left out."""
+    for case in CASES:
+        for name, mesh in meshes.items():
+            cfg, tcfg = cfg_for(case), tcfg_for(case)
+            model, _ = sharded.shard_(model_for(cfg), cfg, mesh)
+            grads, drops = split_grads(cfg, tcfg, model, batch_at(
+                cfg, 0, rows_for(case, name)), mesh)
+            out[f"grads/{case}/{name}"] = {
+                "grads": grads, "drops": drops,
+                "coord": mesh.get_coordinate()}
+    real = common.tp
+    common.tp = SimpleNamespace(**{**vars(real),
+                                   "reduce_out": lambda x: x})
+    try:
+        cfg, tcfg = cfg_for("yi"), tcfg_for("yi")
+        mesh = meshes["1x4"]
+        model, _ = sharded.shard_(model_for(cfg), cfg, mesh)
+        out["grads_control"] = {"grads": split_grads(
+            cfg, tcfg, model, batch_at(cfg, 0, rows_for("yi", "1x4")),
+            mesh)[0]}
+    finally:
+        common.tp = real
+
+
+def case_thread_backward(mesh14, out):
+    """yi's split step on (1, 4), its backward (and so remat's recompute)
+    run in another thread, as autograd runs a CUDA backward in a device
+    thread, which holds none of the forward's thread-local contexts: the
+    gradients against the same step's in the forward's thread."""
+    from repro_torch.train.train_step import lm_loss
+
+    cfg, tcfg = cfg_for("yi"), tcfg_for("yi")
+    batch = batch_at(cfg, 0)
+    grads = []
+    for threaded in (False, True):
+        model, _ = sharded.shard_(model_for(cfg), cfg, mesh14)
+        with shd.use_sharding(mesh14), tp.use_split(model, mesh14):
+            leaves = list(model.parameters())
+            for p in leaves:
+                p.requires_grad_(True)
+            loss, _ = lm_loss(model, cfg, sharded.shard_rows(batch, mesh14))
+            box = []
+            def run():
+                box.append(torch.autograd.grad(loss, leaves))
+
+            if threaded:
+                t = threading.Thread(target=run)
+                t.start()
+                t.join(timeout=120)
+                assert not t.is_alive()
+            else:
+                run()
+        grads.append([g.numpy() for g in box[0]])
+    out["thread_backward"] = {"equal": all(
+        np.array_equal(a, b) for a, b in zip(*grads)), "n": len(grads[1])}
 
 
 def case_norm_control(mesh22, out):
@@ -127,7 +264,7 @@ def case_norm_control(mesh22, out):
     owns = sharded._owns
     sharded._owns = lambda mesh, placements: True
     try:
-        cfg, tcfg = cfg_for("yi"), tcfg_for("yi")
+        cfg, tcfg = cfg_for("yi", step=True), tcfg_for("yi")
         model, state = sharded.shard_(model_for(cfg), cfg, mesh22)
         step = sharded.make_sharded_train_step(cfg, tcfg, mesh22)
         metrics = []
@@ -232,16 +369,31 @@ def case_restart(mesh22, out, ckpt_dir):
                           os.path.join(ckpt_dir, "failing"))}
 
 
-def _moe_params(inp, grad: bool):
+def _moe_params(inp):
     def t(k):
-        return torch.from_numpy(inp[k]).requires_grad_(grad)
+        return torch.from_numpy(inp[k])
     shared = moe_mod.SwiGLU(t("p_shared_gate"), t("p_shared_up"),
                             t("p_shared_down"))
-    p = moe_mod.MoE(t("p_router"), t("p_gate"), t("p_up"), t("p_down"),
-                    shared)
-    if grad:
-        for w in p.parameters():
-            w.requires_grad_(True)
+    return moe_mod.MoE(t("p_router"), t("p_gate"), t("p_up"), t("p_down"),
+                       shared)
+
+
+def _moe_shard_(p, cfg, mesh):
+    """``p``'s weights laid out on ``mesh`` as DTensors with the
+    placements ``sharded.shard_`` gives a model's MoE layer."""
+    specs = moe_mod.moe_specs(cfg)
+    named = dict(p.named_parameters())
+    axes = {}
+    for n in named:
+        node = specs
+        for k in n.split("."):
+            node = node[k]
+        axes[n] = node
+    lay = shd.param_sharding(axes, {n: tuple(w.shape)
+                                    for n, w in named.items()}, mesh,
+                             shd.PARAM_RULES)
+    for n, sh in lay.items():
+        shd.set_param(p, n, shd.distribute(named[n].detach(), sh))
     return p
 
 
@@ -250,39 +402,39 @@ MOE_BASE = dict(d_model=32, n_experts=8, moe_top_k=2, expert_d_ff=64,
 
 
 def case_a2a(mesh22, mesh41, out, inp):
-    """``moe_apply`` with ``moe_impl="a2a"`` on each rank's data shard of
-    the reference's x: outputs, aux, and the gradients of sum(out · ct) and
-    of aux (x on each rank; router and experts summed / averaged over the
-    data ranks)."""
+    """``moe_apply`` with ``moe_impl="a2a"`` in a split step on (2, 2),
+    the weights laid out as ``shard_`` lays them and gathered over data as
+    a layer gathers them, on each rank's data shard of the reference's x:
+    outputs, aux, and the gradients of sum(out · ct) and of aux (x on each
+    rank; the router's and the experts' gathered whole from each rank's
+    block of the data mean: summed over the data ranks for sum(out · ct),
+    averaged for the aux)."""
     i = mesh22.get_local_rank("data")
     rows = slice(2 * i, 2 * i + 2)
-    data_group = mesh22.get_group("data")
     res = {}
+    names = ("router", "gate", "up", "down")
     for cf in (8.0, 1.0):
         cfg = SimpleNamespace(**MOE_BASE, capacity_factor=cf, moe_impl="a2a")
         tag = f"cf{int(cf)}"
-        p = _moe_params(inp, True)
+        p = _moe_shard_(_moe_params(inp), cfg, mesh22)
         x = torch.from_numpy(inp["x"][rows]).requires_grad_(True)
         ct = torch.from_numpy(inp["ct"][rows])
-        with shd.use_sharding(mesh22):
-            o, aux = moe_mod.moe_apply(p, cfg, x, with_aux=True)
-        names = ("router", "gate", "up", "down")
-        ws = [getattr(p, n) for n in names]
-        g_sum = torch.autograd.grad((o * ct).sum(), [x, *ws],
-                                    retain_graph=True)
-        g_aux = torch.autograd.grad(aux, [x, *ws], allow_unused=True,
-                                    materialize_grads=True)
+        with shd.use_sharding(mesh22), tp.use_split(p, mesh22):
+            ws = [getattr(p, n).requires_grad_(True) for n in names]
+            with tp.gather_params(p):
+                o, aux = moe_mod.moe_apply(p, cfg, x, with_aux=True)
+            g_sum = torch.autograd.grad((o * ct).sum(), [x, *ws],
+                                        retain_graph=True)
+            g_aux = torch.autograd.grad(aux, [x, *ws], allow_unused=True,
+                                        materialize_grads=True)
         res[tag] = {"out": o.detach().numpy(), "aux": float(aux),
                     "gx_sum": g_sum[0].numpy(), "gx_aux": g_aux[0].numpy()}
         for n, gs, ga in zip(names, g_sum[1:], g_aux[1:]):
-            gs, ga = gs.clone(), ga.clone()
-            dist.all_reduce(gs, group=data_group)
-            dist.all_reduce(ga, group=data_group)
-            res[tag][f"g{n}_sum"] = gs.numpy()
-            res[tag][f"g{n}_aux"] = (ga / 2).numpy()
+            res[tag][f"g{n}_sum"] = 2 * _whole_block(gs, getattr(p, n))
+            res[tag][f"g{n}_aux"] = _whole_block(ga, getattr(p, n))
     # fall-through: a model axis of 1, and tokens that do not split
     cfg = SimpleNamespace(**MOE_BASE, capacity_factor=8.0, moe_impl="a2a")
-    p = _moe_params(inp, False)
+    p = _moe_params(inp)
     i4 = mesh41.get_local_rank("data")
     with torch.no_grad(), shd.use_sharding(mesh41):
         res["model1"] = moe_mod.moe_apply(
@@ -320,8 +472,11 @@ def run(rank: int, world: int, store_path: str, inputs_path: str,
         mesh41 = init_device_mesh("cpu", (4, 1),
                                   mesh_dim_names=("data", "model"))
         ckpt_dir = os.path.join(out_dir, "ckpt")
+        meshes = {"2x2": mesh22, "1x4": mesh14, "4x1": mesh41}
         cases = [
-            ("steps", lambda: case_steps(mesh22, out)),
+            ("steps", lambda: case_steps(meshes, out)),
+            ("grads", lambda: case_grads(meshes, out)),
+            ("thread_backward", lambda: case_thread_backward(mesh14, out)),
             ("norm_control", lambda: case_norm_control(mesh22, out)),
             ("elastic", lambda: case_elastic(mesh22, mesh14, out, ckpt_dir)),
             ("reference_ckpt", lambda: case_reference_checkpoint(

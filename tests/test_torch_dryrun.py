@@ -191,28 +191,76 @@ def test_layouts_equal_the_reference_input_specs(arch, shape_name):
         assert spec == tuple(want), (path, spec, want)
 
 
-def test_record_counts_the_a2a_dispatch_and_replication():
+def test_record_counts_the_a2a_dispatch_and_the_split():
     """An optimized moonshot cell (``moe_impl="a2a"``, ``xla_mapped``) on
     the fake 16x16 mesh at smoke size (16 experts, so they split over
-    ``model``): the a2a dispatch's all-to-alls and
-    the step's raw all-reduces are counted, as CommDebugMode counts them;
-    per-device FLOPs exceed the analytic FLOPs / 256 (the compute along
-    ``model`` is replicated); the placement bytes are each rank's shards."""
+    ``model``): the a2a dispatch's all-to-alls, the split products'
+    all-reduces, the per-layer gathers of the weights and their gradients'
+    reduce-scatters are counted, as CommDebugMode counts them; the
+    placement bytes are each rank's shards.  The split: on a fake (4, 4)
+    mesh the dense products (``aten.mm``: attention, the shared expert, the
+    router, the logits) cost each rank what they cost on (16, 1), where
+    data parallelism alone splits them; computed whole along ``model``
+    they cost 4 times as much."""
     rec = dryrun.run_cell("moonshot-v1-16b-a3b", "train_4k", False,
                           verbose=False, profile="optimized", smoke=True,
                           overrides={"n_experts": 16})
     st = rec["step"]
     coll, debug = st["collectives"], st["comm_debug_counts"]
     assert coll["all-to-all"]["count"] > 0
+    assert coll["reduce-scatter"]["count"] > 0
     for kind, names in (("all-to-all", ("all_to_all", "alltoall")),
                         ("all-reduce", ("all_reduce", "allreduce")),
-                        ("all-gather", ("all_gather", "allgather"))):
+                        ("all-gather", ("all_gather", "allgather")),
+                        ("reduce-scatter", ("reduce_scatter",))):
         assert coll[kind]["count"] == sum(
             n for op, n in debug.items() if any(x in op for x in names))
-    assert st["flops_per_device"] > rec["analytic"]["analytic_flops"] / 256
     mem = rec["memory"]
     assert 0 < mem["params_bytes"] < mem["moments_bytes"]
     assert rec["mesh"] == {"data": 16, "model": 16}
+    cfg, shape = dryrun._cell_config("moonshot-v1-16b-a3b", "train_4k", True)
+    cfg, tcfg, rules = dryrun.apply_profile(cfg, shape, "optimized",
+                                            {"n_experts": 16})
+    mm = {}
+    for dm in ((16, 1), (4, 4)):
+        with dryrun.fake_group(16):
+            step = dryrun.run_step(cfg, shape, make_local_mesh(
+                *dm, "cpu", fake=True), tcfg, rules)["step"]
+        mm[dm] = step["per_op_flops"]["aten.mm"]
+    assert mm[(4, 4)] <= 1.05 * mm[(16, 1)]
+
+
+def _split_flops_and_peak(arch: str, mesh_dims) -> tuple[int, int]:
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=256,
+                                global_batch=4)
+    cfg = get_smoke_config(arch).replace(max_seq=256, attn_impl="xla")
+    with dryrun.fake_group(mesh_dims[0] * mesh_dims[1]):
+        rec = dryrun.run_step(cfg, shape,
+                              make_local_mesh(*mesh_dims, "cpu", fake=True))
+    return rec["step"]["flops_per_device"], rec["memory"]["peak_bytes"]
+
+
+def test_split_step_cuts_each_ranks_flops_and_peak():
+    """yi-6b's smoke train step on a fake 4-rank group: on (1, 4), where
+    heads, ffn and vocab split over ``model``, each rank does at most 0.4
+    of the (1, 1) step's FLOPs and peaks below it."""
+    f1, p1 = _split_flops_and_peak("yi-6b", (1, 1))
+    f4, p4 = _split_flops_and_peak("yi-6b", (1, 4))
+    assert f4 <= 0.4 * f1
+    assert p4 < p1
+
+
+def test_full_width_train_cell_fits_a_card():
+    """yi-6b x train_4k at full width on the fake 16x16 group (about 20 s
+    here): each rank's FLOPs at most 2.5x ``analytic_flops / 256`` (remat's
+    recompute, the full square of ``xla``'s attention and the kv
+    projections its q heads read come on top) and its peak of live bytes
+    below 80 GB: its shards, one layer's weights gathered over ``data`` and
+    the activations."""
+    rec = dryrun.run_cell("yi-6b", "train_4k", False, verbose=False)
+    share = rec["analytic"]["analytic_flops"] / 256
+    assert rec["step"]["flops_per_device"] <= 2.5 * share
+    assert rec["memory"]["peak_bytes"] < 80e9
 
 
 def test_inference_passes_take_the_plain_collectives(monkeypatch):

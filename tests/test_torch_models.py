@@ -261,6 +261,31 @@ def test_gradients_flow_through_the_kernel_path(model):
     assert (grads["xla"] - grads["pallas_mapped"]).abs().max() < 1e-5
 
 
+def test_float64_model_computes_in_float64():
+    """``dtype="float64"`` (numerics checks on the CPU): the weights, the
+    activations, the fp32 islands (norms, rope, softmax, logits, the loss)
+    and every gradient in float64, within fp32 rounding of the fp32
+    model's loss and gradients from the same seed."""
+    cfg32 = get_smoke_config("yi-6b")
+    toks = torch.from_numpy(_tokens(4, cfg32.vocab_size))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    out = {}
+    for cfg in (cfg32, cfg32.replace(dtype="float64")):
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        leaves = list(params.parameters())
+        for w in leaves:
+            w.requires_grad_(True)
+        loss, _ = lm_loss(params, cfg, batch)
+        out[cfg.dtype] = (loss, torch.autograd.grad(loss, leaves))
+    loss64, grads64 = out["float64"]
+    loss32, grads32 = out["float32"]
+    assert loss64.dtype == torch.float64
+    assert all(g.dtype == torch.float64 for g in grads64)
+    assert abs(float(loss64) - float(loss32)) < 1e-5 * abs(float(loss64))
+    for g64, g32 in zip(grads64, grads32):
+        assert (g64 - g32).abs().max() <= 1e-4 * g64.abs().max()
+
+
 def test_prefill_decode_match_reference(model):
     arch, rparams, params = model
     rcfg, cfg = _cfgs(arch)
