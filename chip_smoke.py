@@ -6,7 +6,7 @@
     python3 chip_smoke.py --sharded-sweep  # device, build, the sweep's split
     python3 chip_smoke.py --train-probe    # device, build, train_probe
     python3 chip_smoke.py --sharded-train  # device, build, train_entry,
-                                           # sharded_train
+                                           # sharded_train, sharded_rwkv
     python3 chip_smoke.py --dryrun-only    # device, build, dryrun_arch
 
 Phases, each printing one JSON line:
@@ -231,14 +231,30 @@ Phases, each printing one JSON line:
                final metrics within 1e-5 relative of train_entry's.  One
                card, so every collective is a 1-rank one; multi-rank
                numerics are held on the CPU (tests/test_torch_distributed.py)
+  sharded_rwkv rwkv6-3b at full width (bf16, remat "full"), batch 1 of
+               4096 in one microbatch, at SHARDED_RWKV_LAYERS layers: one
+               single-device step, then from the same weights and batch
+               the sharded step on the same 1-rank NCCL mesh: loss, grad
+               norm and every parameter bitwise (or within 1e-6 relative);
+               the wkv calls (one a layer in the forward, one in its remat
+               recompute) counted by the wrapper; a second step's time and
+               the peak memory; a third step under the profiler, each of
+               the wkv call's three kernels counted in its trace.  The
+               split of rwkv6's layers over model is held on the CPU
+               (tests/test_torch_distributed_ssm.py)
   dryrun_arch  python -m repro_torch.launch.dryrun --arch yi-6b --shape
-               train_4k --multi-pod both and --arch deepseek-v2-236b
-               --shape decode_32k --multi-pod off as subprocesses, side by
-               side, into build/dryrun (fake tensors on a fake 256/512-rank
-               group): exit 0, each record's analytic equal to
-               cell_analytics, FLOPs per device > 0, launch.roofline's
-               load_rows and render_markdown over them, each cell's
-               seconds; --all only if those cells say it takes under 60 s
+               train_4k --multi-pod both, --arch deepseek-v2-236b --shape
+               decode_32k, --arch rwkv6-3b --shape train_4k and --arch
+               zamba2-1.2b --shape train_4k (the last three --multi-pod
+               off) as subprocesses, side by side, into build/dryrun (fake
+               tensors on a fake 256/512-rank group; the full run starts
+               them before train, so they overlap the card's phases): exit
+               0, each record's analytic equal to cell_analytics, FLOPs
+               per device > 0, launch.roofline's load_rows and
+               render_markdown over them, each cell's seconds; yi-6b's,
+               rwkv6-3b's and zamba2-1.2b's train_4k on 16x16 against their
+               caps (FLOPs over analytic_flops / 256, peak GB); --all only
+               if those cells say it takes under 60 s
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
@@ -384,6 +400,10 @@ WKV_STRONG = (0.3, 0.5, 1.0)
 RWKV_ARCH = "rwkv6-3b"
 RWKV_PARAMS = 3_073_313_280
 RWKV_SEQ = 4096
+RWKV_LAYERS = 32
+#: the three kernels of a wkv call, as the profiler's trace names them
+WKV_KERNEL_NAMES = ("wkv_states_kernel", "wkv_scan_kernel",
+                    "wkv_outputs_kernel")
 #: one wkv call per layer per chunked pass (``launch_wkv``; each issues
 #: three kernels: chunk states, state scan, chunk outputs)
 RWKV_LAUNCHES = 32
@@ -575,9 +595,21 @@ SHARDED_RTOL, SHARDED_ENTRY_RTOL = 1e-6, 1e-5
 #: the sharded step's peak device memory over the single-device step's:
 #: it holds one layer's weights gathered, never the whole model
 SHARDED_PEAK_SLACK_GB = 0.5
+#: sharded_rwkv: rwkv6-3b's step at batch 1 of RWKV_SEQ tokens in one
+#: microbatch, at this depth (of RWKV_LAYERS)
+SHARDED_RWKV_LAYERS, SHARDED_RWKV_BATCH = 6, 1
+#: dryrun_arch's commands: (arch, shape, --multi-pod)
+DRYRUN_COMMANDS = (("yi-6b", "train_4k", "both"),
+                   ("deepseek-v2-236b", "decode_32k", "off"),
+                   ("rwkv6-3b", "train_4k", "off"),
+                   ("zamba2-1.2b", "train_4k", "off"))
 #: the dry run's yi-6b x train_4k on the fake 16x16 group: each rank's
 #: FLOPs over analytic_flops / 256, and its peak of live bytes
 DRYRUN_YI_FLOPS_RATIO_MAX, DRYRUN_YI_PEAK_GB_MAX = 2.5, 80.0
+#: rwkv6-3b's and zamba2-1.2b's train_4k on 16x16 with their layers split
+#: over model: FLOPs over analytic_flops / 256 at most these, peaks below
+#: those of their layers computed whole along model (120.3, 32.4 GB)
+DRYRUN_SSM_CELLS = {"rwkv6-3b": (4.0, 120.3), "zamba2-1.2b": (3.0, 32.4)}
 #: --train-probe: the main path's 4 steps at these learning rates (full
 #: depth, bf16), and at TRAIN_GATE_LAYERS layers in bf16 and in fp32 at the
 #: main path's 3e-4
@@ -676,6 +708,7 @@ class Smoke:
                        for k in self.max_err}
         self.attn_row = {}
         self.sm90_paths = {}           # sm90 launches per main path
+        self.wkv_paths = {}            # wkv calls per main path
         self.attn_simt_row = {}
         self.wkv_row = {}
         self.paper_ms = {}
@@ -2497,35 +2530,48 @@ class Smoke:
               "note": "device time from the profiler's CUDA events; HBM "
                       "bytes are not in a trace"})
 
-    def dryrun_arch(self) -> None:
-        """The --arch dry run as subprocesses into build/dryrun: yi-6b x
-        train_4k on both meshes and deepseek-v2-236b x decode_32k on 16x16
-        (exit 0; each record's analytic equal to cell_analytics, FLOPs per
-        device > 0; roofline.load_rows and render_markdown accept them);
-        then --all --multi-pod off if the cells measured say it would take
-        under 60 s."""
+    def start_dryruns(self) -> None:
+        """dryrun_arch's commands (DRYRUN_COMMANDS) started side by side as
+        subprocesses into build/dryrun: each is one single-threaded process
+        on the host's cores and touches no card, so the full run starts
+        them before the train phase and its card phases overlap them."""
         import os
         import shutil
+
+        out = ROOT / "build" / "dryrun"
+        shutil.rmtree(out, ignore_errors=True)
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        self.dry_t0, self.dry_procs = time.perf_counter(), []
+        for arch, shape, mp in DRYRUN_COMMANDS:
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape, "--multi-pod", mp,
+                    "--out", str(out)]
+            self.dry_procs.append((argv, subprocess.Popen(
+                argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+
+    def dryrun_arch(self) -> None:
+        """The --arch dry run as subprocesses into build/dryrun
+        (start_dryruns, unless started before): yi-6b x train_4k on both
+        meshes, deepseek-v2-236b x decode_32k, rwkv6-3b x train_4k and
+        zamba2-1.2b x train_4k on 16x16 (exit 0; each record's analytic
+        equal to cell_analytics, FLOPs per device > 0; roofline.load_rows
+        and render_markdown accept them; yi-6b's, rwkv6-3b's and
+        zamba2-1.2b's train_4k against their caps); then --all
+        --multi-pod off if the cells measured say it would take under
+        60 s."""
+        import os
 
         from repro_torch.configs import SHAPES, get_config
         from repro_torch.launch import analytic, roofline
         from repro_torch.launch.dryrun import apply_profile
 
         out = ROOT / "build" / "dryrun"
-        shutil.rmtree(out, ignore_errors=True)
         env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-        # the two commands side by side: each is one single-threaded
-        # process on the host's cores
-        procs = []
-        t0 = time.perf_counter()
-        for arch, shape, mp in (("yi-6b", "train_4k", "both"),
-                                ("deepseek-v2-236b", "decode_32k", "off")):
-            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                    "--arch", arch, "--shape", shape, "--multi-pod", mp,
-                    "--out", str(out)]
-            procs.append((argv, subprocess.Popen(
-                argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)))
+        if not getattr(self, "dry_procs", None):
+            self.start_dryruns()
+        t0, procs = self.dry_t0, self.dry_procs
+        waited = time.perf_counter()
         runs = []
         try:
             for argv, proc in procs:
@@ -2541,6 +2587,8 @@ class Smoke:
             for _, proc in procs:
                 proc.kill()
                 proc.wait()
+            self.dry_procs = []
+        waited = time.perf_counter() - waited
         wall = time.perf_counter() - t0
         cells = []
         for path in sorted(out.glob("*.json")):
@@ -2566,17 +2614,26 @@ class Smoke:
                 "collectives": {k: v for k, v in st["collectives"].items()
                                 if isinstance(v, dict) and v["count"]},
                 "comm_debug_counts": st["comm_debug_counts"],
-                "memory_gb": {k: v / 1e9 for k, v in rec["memory"].items()}})
-        check(len(cells) == 3, f"{len(cells)} records, want 3")
-        yi = next(c for c in cells if c["cell"] == "yi-6b__train_4k__sp")
-        yi_split = {"flops_over_share": yi["flops_over_share"],
-                    "peak_gb": yi["peak_gb"]}
-        check(yi["flops_over_share"] <= DRYRUN_YI_FLOPS_RATIO_MAX
-              and yi["peak_gb"] < DRYRUN_YI_PEAK_GB_MAX,
+                "memory_gb": {k: v / 1e9 for k, v in rec["memory"].items()},
+                "peak_holders": st["peak_holders"]})
+        check(len(cells) == 5, f"{len(cells)} records, want 5")
+        by_cell = {c["cell"]: {"flops_over_share": c["flops_over_share"],
+                               "peak_gb": c["peak_gb"]} for c in cells}
+        yi_split = by_cell["yi-6b__train_4k__sp"]
+        check(yi_split["flops_over_share"] <= DRYRUN_YI_FLOPS_RATIO_MAX
+              and yi_split["peak_gb"] < DRYRUN_YI_PEAK_GB_MAX,
               f"yi-6b x train_4k on 16x16: {yi_split}")
+        ssm = {}
+        for arch, (ratio_max, peak_max) in DRYRUN_SSM_CELLS.items():
+            ssm[arch] = by_cell[f"{arch}__train_4k__sp"]
+            check(ssm[arch]["flops_over_share"] <= ratio_max
+                  and ssm[arch]["peak_gb"] < peak_max,
+                  f"{arch} x train_4k on 16x16: {ssm[arch]}, caps "
+                  f"{ratio_max} and {peak_max} GB")
         md = roofline.render_markdown(roofline.load_rows(str(out)))
         mp_rows = roofline.load_rows(str(out), multi_pod=True)
-        check(len(mp_rows) == 1 and md.count("\n") == 3,
+        check(len(mp_rows) == 1
+              and md.count("\n") == len(DRYRUN_COMMANDS) + 1,
               "roofline rows of the dry-run records")
         # --all: 32 cells one after another (8 of them skipped at once)
         estimate = sum(c["lower_s"] + c["run_s"] for c in cells) \
@@ -2592,7 +2649,9 @@ class Smoke:
             check(proc.returncode == 0, f"--all exited {proc.returncode}")
             all_run = time.perf_counter() - t0
         emit({"phase": "dryrun_arch", "card": self.card, "runs": runs,
-              "wall_s": wall, "yi_6b_train_4k_16x16": yi_split,
+              "wall_s": wall, "waited_s": waited,
+              "yi_6b_train_4k_16x16": yi_split,
+              "ssm_train_4k_16x16": ssm,
               "cells": cells, "roofline_markdown": md,
               "all_estimate_s": estimate, "all_s": all_run,
               "note": "fake tensors on a fake 256/512-rank group: FLOPs, "
@@ -3006,6 +3065,7 @@ class Smoke:
         loss_s = time.perf_counter() - t0
         counts = self.counts()
         self.launches["wkv"] = counts["wkv"]
+        self.wkv_paths["rwkv_forward"] = counts["wkv"]
         self.wkv_row["kernels_issued"] = WK.WKV_KERNELS
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         check(n1 == RWKV_LAUNCHES and counts["wkv"] - n1 == RWKV_LAUNCHES,
@@ -5378,29 +5438,37 @@ class Smoke:
                 "seconds": wall, "final": got, "rel_to_train_entry": rel,
                 "rtol": SHARDED_ENTRY_RTOL, "stdout": lines}
 
-    def sharded_train(self) -> None:
-        """The sharded step on the card: in process over a 1-rank NCCL
-        group, then the launcher under torch.distributed.run."""
+    @contextlib.contextmanager
+    def _one_rank_mesh(self):
+        """A 1-rank NCCL group on a TCPStore at 127.0.0.1 and
+        make_local_mesh()'s (1, 1) mesh over it, for the block."""
         from datetime import timedelta
 
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import make_local_mesh
 
-        t_phase = time.perf_counter()
-        self._free()
         store = dist.TCPStore("127.0.0.1", 0, 1, True,
                               timeout=timedelta(seconds=120))
         dist.init_process_group("nccl", store=store, rank=0, world_size=1,
                                 device_id=self.torch.device("cuda", 0))
         try:
-            mesh = make_local_mesh()
+            yield make_local_mesh()
+        finally:
+            dist.destroy_process_group()
+
+    def sharded_train(self) -> None:
+        """The sharded step on the card: in process over a 1-rank NCCL
+        group, then the launcher under torch.distributed.run."""
+        import torch.distributed as dist
+
+        t_phase = time.perf_counter()
+        self._free()
+        with self._one_rank_mesh() as mesh:
             backend = dist.get_backend()
             main = self._sharded_step(self._train_cfg(), mesh)
             compressed = self._compressed(main.pop("embed_grad").cuda(),
                                           mesh.get_group("data"))
-        finally:
-            dist.destroy_process_group()
         self._free()
         emit({"phase": "sharded_train", "card": self.card, "arch": TRAIN_ARCH,
               "mesh": {"data": 1, "model": 1}, "backend": backend,
@@ -5411,6 +5479,141 @@ class Smoke:
               "microbatches": TRAIN_MICROBATCHES, **main,
               "compressed_psum_mean": compressed,
               "entry_point": self._sharded_entry(),
+              "phase_s": time.perf_counter() - t_phase})
+
+    def sharded_rwkv(self) -> None:
+        """rwkv6-3b's training step on the card, single-device and sharded
+        over a 1-rank NCCL group from the same weights and batch: loss,
+        grad norm and every parameter bitwise (or within 1e-6 relative);
+        the wkv calls of the sharded step counted by the wrapper against
+        the code's count (a call per layer in the forward and one in its
+        remat recompute); a second sharded step timed, the peak memory; a
+        third under the profiler, its calls by the wrapper and each of
+        their three kernels in the trace."""
+        torch, WK = self.torch, self.WK
+        from torch.distributed.tensor import DTensor
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train import sharded
+        from repro_torch.train.data import DataConfig, SyntheticLM
+        from repro_torch.train.train_step import TrainConfig, make_train_step
+
+        t_phase = time.perf_counter()
+        self._free()
+        cfg = get_config(RWKV_ARCH).replace(max_seq=RWKV_SEQ,
+                                            n_layers=SHARDED_RWKV_LAYERS)
+        check(cfg.remat and cfg.remat_policy == "full"
+              and cfg.dtype == "bfloat16", f"{RWKV_ARCH}: {cfg.remat_policy}"
+              f" {cfg.dtype}")
+        tcfg = TrainConfig(optimizer=opt.OptimizerConfig(
+            lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS),
+            microbatches=1)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=RWKV_SEQ,
+                                      global_batch=SHARDED_RWKV_BATCH))
+        batches = [{k: torch.from_numpy(v).cuda()
+                    for k, v in data.batch_at(i).items()} for i in range(2)]
+        params = T.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        host = {n: p.detach().to("cpu", copy=True)
+                for n, p in params.named_parameters()}
+        state = opt.init_state(params)
+        self.sync()
+        self.reset_counts()
+        t0 = time.perf_counter()
+        params, state, m1 = make_train_step(cfg, tcfg)(params, state,
+                                                       batches[0])
+        self.sync()
+        single_s = time.perf_counter() - t0
+        single_calls = self.counts()["wkv"]
+        single = {k: float(v) for k, v in m1.items()}
+        want = {n: p.detach().to("cpu", copy=True)
+                for n, p in params.named_parameters()}
+        del state
+        with torch.no_grad():
+            for n, p in params.named_parameters():
+                p.copy_(host[n])
+        del host
+        self._free()
+        with self._one_rank_mesh() as mesh:
+            torch.cuda.reset_peak_memory_stats()
+            params, state = sharded.shard_(params, cfg, mesh)
+            check(all(isinstance(p, DTensor) for p in params.parameters()),
+                  "the sharded weights are not DTensors")
+            step = sharded.make_sharded_train_step(cfg, tcfg, mesh)
+            self.sync()
+            self.reset_counts()
+            params, state, m2 = step(params, state, batches[0])
+            self.sync()
+            counts = self.counts()
+            got = {k: float(v) for k, v in m2.items()}
+            rel = {k: abs(got[k] - single[k]) / max(abs(single[k]), 1e-30)
+                   for k in single}
+            param_rel, bitwise = 0.0, True
+            for n, p in params.named_parameters():
+                a = p.to_local().detach().cpu()
+                if torch.equal(a, want[n]):
+                    continue
+                bitwise = False
+                b = want[n].float()
+                param_rel = max(param_rel,
+                                float((a.float() - b).abs().max())
+                                / max(float(b.abs().max()), 1e-30))
+            del want
+            check(all(r <= SHARDED_RTOL for r in rel.values())
+                  and param_rel <= SHARDED_RTOL,
+                  f"sharded rwkv step against the single-device step: "
+                  f"metrics {rel}, parameters {param_rel}")
+            t0 = time.perf_counter()
+            params, state, m3 = step(params, state, batches[1])
+            self.sync()
+            step_s = time.perf_counter() - t0
+            check(all(math.isfinite(float(v)) for v in m3.values())
+                  and int(state["step"]) == 2,
+                  f"the second sharded rwkv step: {m3}")
+            # the trace last: a profiled step slows the launches after it
+            self.reset_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, state, _ = step(params, state, batches[0])
+                self.sync()
+            profiled = self.counts()["wkv"], WK.WKV_KERNELS
+            traced = {name: sum(e.count for e in prof.key_averages()
+                                if e.device_type.name == "CUDA"
+                                and name in e.key)
+                      for name in WKV_KERNEL_NAMES}
+            del prof
+            calls = 2 * cfg.n_layers     # forward and remat recompute
+            check(single_calls == calls and counts["wkv"] == calls
+                  and profiled == (calls, 3 * calls)
+                  and all(n == calls for n in traced.values())
+                  and all(n == 0 for k, n in counts.items() if k != "wkv"),
+                  f"wkv calls: single-device {single_calls}, sharded "
+                  f"{counts}, profiled step {profiled} (calls, kernels), "
+                  f"traced {traced}; want {calls} calls of 3 kernels")
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            del params, state, batches
+        self.launches["wkv"] = self.launches.get("wkv", 0) + counts["wkv"]
+        self.wkv_paths["sharded_rwkv"] = counts["wkv"]
+        self._free()
+        emit({"phase": "sharded_rwkv", "card": self.card, "arch": RWKV_ARCH,
+              "layers": cfg.n_layers,
+              "cut": None if cfg.n_layers == RWKV_LAYERS
+              else f"{cfg.n_layers} of {RWKV_LAYERS} layers",
+              "mesh": {"data": 1, "model": 1},
+              "batch": SHARDED_RWKV_BATCH, "seq": RWKV_SEQ,
+              "microbatches": 1, "dtype": cfg.dtype,
+              "remat": cfg.remat_policy, "single_device": single,
+              "single_device_step_s": single_s, "sharded": got,
+              "metric_rel": rel, "param_rel_max": param_rel,
+              "params_bitwise": bitwise, "rtol": SHARDED_RTOL,
+              "main_path": counts,
+              "profiled_step_wkv_calls_kernels": list(profiled),
+              "wkv_kernels_traced": traced, "wkv_calls_want": calls,
+              "second_step_s": step_s, "peak_gb": peak,
               "phase_s": time.perf_counter() - t_phase})
 
     def train_probe(self) -> None:
@@ -5487,7 +5690,8 @@ class Smoke:
             "name": "wkv", "route": "cuda",
             "source": "src/repro_torch/kernels/wkv/csrc/wkv.cu",
             "replaces": "src/repro/kernels/wkv/kernel.py:25",
-            "launches": self.launches["wkv"], **self.wkv_row})
+            "launches": self.launches["wkv"],
+            "launches_by_path": self.wkv_paths, **self.wkv_row})
         for r in rows:
             check(r["launches"] > 0, f"{r['name']} was never launched on its"
                   f" main path")
@@ -5515,6 +5719,7 @@ def main() -> int:
     if "--sharded-train" in sys.argv[1:]:
         smoke.train_entry()
         smoke.sharded_train()
+        smoke.sharded_rwkv()
         return 0
     if "--sharded-sweep" in sys.argv[1:]:
         emit({"phase": "sharded_sweep", "card": smoke.card,
@@ -5547,9 +5752,11 @@ def main() -> int:
     smoke.hybrid_generate()
     smoke.mla_forward()
     smoke.mla_generate()
+    smoke.start_dryruns()
     smoke.train()
     smoke.train_entry()
     smoke.sharded_train()
+    smoke.sharded_rwkv()
     smoke.dryrun_arch()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,10 +27,14 @@ through ``copy_in`` (identity forward, all-reduce backward) and a
 row-parallel product leaves it through ``reduce_out`` (all-reduce forward,
 identity backward).  A weight used in a split region that is not split
 there (``wk``/``wv`` under split heads, whose kv heads are replicated) is
-taken ``partial``: its gradient is summed over ``model``.  Every other
-weight outside a split region is computed the same way on every rank of
-the model group, so its gradient is the whole one on each, and a weight
-stored split over ``model`` but computed whole keeps its own chunk of it.
+taken ``partial``: its gradient is summed over ``model``.  Compute that
+must see a whole activation of which each rank holds its columns (rwkv6's
+WKV where its heads do not divide ``model``) gathers it (``gather_model``,
+backward: the rank's own chunk) and, after it, takes its columns back
+(``split_in``, backward: an all-gather).  Every other weight outside a
+split region is computed the same way on every rank of the model group,
+so its gradient is the whole one on each, and a weight stored split over
+``model`` but computed whole keeps its own chunk of it.
 
 ``split(axis, size)`` says whether a logical axis is split on this mesh:
 ``resolve_spec`` with its divisibility fallback, on a ``model`` axis larger
@@ -144,6 +148,22 @@ class _GatherModel(torch.autograd.Function):
         else:
             g = g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size)
         return g, None, None, None, None
+
+
+class _SplitIn(torch.autograd.Function):
+    """Forward: this rank's chunk along ``dim`` of a tensor every rank of
+    ``group`` holds whole; backward: the ranks' chunks' gradients
+    concatenated (one all-gather), the whole gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, n):
+        ctx.dim, ctx.group = dim, group
+        size = x.shape[dim] // n
+        return x.narrow(dim, rank * size, size).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None, None, None
 
 
 def _all_to_all(t, split: int, cat: int, group) -> torch.Tensor:
@@ -428,7 +448,30 @@ def row_axes(sizes: dict) -> tuple[str, ...]:
     return tuple(a for a in axes if sizes.get(a, 1) > 1)
 
 
-def sum_over(x: torch.Tensor, groups) -> torch.Tensor:
-    """The sum over ``groups`` of each rank's ``x``, used by every rank
-    (its gradient summed back over them)."""
+def sum_over(x: torch.Tensor, groups=None) -> torch.Tensor:
+    """The sum over ``groups`` (the model group by default) of each rank's
+    ``x``, used by every rank (its gradient summed back over them)."""
     return copy_in(reduce_out(x, groups), groups)
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """An activation each rank of the model group holds its chunk of along
+    ``dim``, whole along it (one all-gather), for compute that every rank
+    then does the same; backward: this rank's chunk of the gradient (each
+    rank's is the whole one).  ``x`` itself outside a split step."""
+    ctx = current()
+    if ctx is None or ctx.m <= 1:
+        return x
+    return _GatherModel.apply(x, dim % x.dim(), ctx.model_group, ctx.j,
+                              "own")
+
+
+def split_in(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of an activation every rank of the
+    model group holds whole, entering a split region: a slice forward, the
+    ranks' gradients gathered backward.  ``x`` itself outside a split
+    step."""
+    ctx = current()
+    if ctx is None or ctx.m <= 1:
+        return x
+    return _SplitIn.apply(x, dim % x.dim(), ctx.model_group, ctx.j, ctx.m)

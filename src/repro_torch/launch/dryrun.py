@@ -24,16 +24,19 @@ Each record holds, for rank 0 (per device):
     the HLO parser's boundary-buffer bytes, and a pessimistic bound;
   * ``memory`` — parameter, moment, cache and batch bytes this rank holds
     by the placements, and the peak bytes of live (fake) storages during
-    the step;
+    the step; ``step.peak_holders``, the largest groups of storages live at
+    that peak (the aten op that made them, shape, dtype, count, bytes);
   * ``analytic`` — ``analytic.cell_analytics``, the idealized bound;
   * ``lower_s`` (building the inputs) and ``run_s`` (the fake step).
 What the port does is what is recorded: each step is a split step
 (``distribution/tensor_parallel.py``): heads, ffn, vocab and experts split
-over ``model`` where their widths divide it, each layer's weights gathered
-over the data axes as the layer runs.  Per-device FLOPs exceed
-``analytic_flops / 256`` by remat's recompute, ``xla``'s full square of
-attention scores, and whatever stays whole along ``model`` (a width that
-does not divide it, rwkv6's and mamba2's layers, ROADMAP queue 1 item 9d).
+over ``model`` where their widths divide it (rwkv6's and mamba2's layers
+included), each layer's weights gathered over the data axes as the layer
+runs.  Per-device FLOPs exceed ``analytic_flops / 256`` by remat's
+recompute, ``xla``'s full square of attention scores, and whatever stays
+whole along ``model``: a width that does not divide it, such as rwkv6-3b's
+WKV and group norm on its 40 heads over 16, and mamba2's B and C with
+the conv on them.
 
 ``--domain-map DOMAIN`` derives the domain's ``MappingArtifact`` (mock
 backend, the artifact store at ``$REPRO_ARTIFACT_CACHE``), deploys it
@@ -115,8 +118,14 @@ class StepMeter(TorchDispatchMode):
     """Counts a step's aten ops: collectives by type (count and result
     bytes; an in-place c10d op's are its first argument's), the operand +
     result bytes of every other op that is not a view, and the live bytes of
-    the storages the step holds (``track`` the inputs first): their peak.
-    A DTensor-level op is skipped; its local ops come through again."""
+    the storages the step holds (``track`` the inputs first): their peak,
+    and what holds it (the live storages when it was last raised by more
+    than ``PEAK_STEP`` of itself, by the op that made them, shape and
+    dtype).  A DTensor-level op is skipped; its local ops come through
+    again."""
+
+    #: a new peak this share above the last one recorded is recorded
+    PEAK_STEP = 0.01
 
     def __init__(self):
         super().__init__()
@@ -125,7 +134,10 @@ class StepMeter(TorchDispatchMode):
         self.unfused_bytes = 0
         self.live = 0
         self.peak = 0
+        #: each live storage -> the op that made it, shape, dtype, bytes
         self._seen = WeakIdKeyDictionary()
+        self._op = "input"
+        self._at_peak, self._recorded = [], 0
 
     def _free(self, n: int) -> None:
         self.live -= n
@@ -136,10 +148,26 @@ class StepMeter(TorchDispatchMode):
             if st in self._seen:
                 continue
             n = st.nbytes()
-            self._seen[st] = n
+            self._seen[st] = (self._op, t.shape, t.dtype, n)
             weakref.finalize(st, self._free, n)
             self.live += n
         self.peak = max(self.peak, self.live)
+        if self.live > self._recorded * (1 + self.PEAK_STEP):
+            self._recorded = self.live
+            self._at_peak = list(self._seen.values())
+
+    def peak_holders(self, top: int = 5) -> list:
+        """The largest groups of live storages at the recorded peak: op,
+        shape, dtype, count and bytes."""
+        groups = {}
+        for op, shape, dtype, n in self._at_peak:
+            g = groups.setdefault((op, shape, dtype), [0, 0])
+            g[0] += 1
+            g[1] += n
+        rows = sorted(groups.items(), key=lambda kv: -kv[1][1])[:top]
+        return [{"op": op, "shape": list(shape), "dtype": str(dtype),
+                 "count": c, "bytes": b} for (op, shape, dtype), (c, b)
+                in rows]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -147,6 +175,7 @@ class StepMeter(TorchDispatchMode):
         if func is _DEVICE or any(issubclass(t, DTensor) for t in types):
             return out
         name = func._schema.name.split("::")[-1]
+        self._op = name
         kind = COLLECTIVES.get(name)
         outs = _tensors(out)
         if kind is not None:
@@ -164,7 +193,7 @@ class StepMeter(TorchDispatchMode):
         coll["total_bytes"] = sum(v["bytes"] for v in per_type)
         coll["total_count"] = sum(v["count"] for v in per_type)
         return {"collectives": coll, "unfused_bytes": self.unfused_bytes,
-                "peak_bytes": self.peak}
+                "peak_bytes": self.peak, "peak_holders": self.peak_holders()}
 
 
 @contextlib.contextmanager
@@ -273,6 +302,7 @@ def run_step(cfg, shape, mesh, tcfg=None, rules=None) -> dict:
             "collectives": m["collectives"],
             "comm_debug_counts": {str(k): int(v) for k, v in
                                   comm.get_comm_counts().items()},
+            "peak_holders": m["peak_holders"],
         },
         "memory": {**mem, "peak_bytes": m["peak_bytes"]},
     }

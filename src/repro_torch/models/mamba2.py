@@ -17,8 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models.common import (
-    EMBED, FFN, HEADS, dense_init, frozen_param, rms_norm,
+    EMBED, FFN, HEADS, dense_init, frozen_param, island_dtype, rms_norm,
 )
 
 MAMBA2_NAMES = ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias", "d_skip",
@@ -68,8 +69,10 @@ def mamba2_specs(cfg):
     }
 
 
-def _split_proj(cfg, zxbcdt):
-    di, n, h = cfg.mamba_d_inner, cfg.ssm_state, cfg.mamba_heads
+def _split_proj(cfg, zxbcdt, m: int = 1):
+    """z, xBC and dt of ``in_proj``'s output; ``m``: the columns of one of
+    ``m`` ranks over which the heads split (``_columns``)."""
+    di, n, h = cfg.mamba_d_inner // m, cfg.ssm_state, cfg.mamba_heads // m
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * n]
     dt = zxbcdt[..., di + di + 2 * n:]
@@ -94,14 +97,18 @@ def _causal_conv(xbc, w, b, tail=None):
 
 
 def _ssm_inputs(p: Mamba2, cfg, xbc_act, dt_raw):
-    di, n, h = cfg.mamba_d_inner, cfg.ssm_state, cfg.mamba_heads
+    """x by head, B, C, dt and the log decay, for the heads of ``dt_raw``
+    (every head, or this rank's under a split of the heads)."""
+    n, h = cfg.ssm_state, dt_raw.shape[-1]
+    di = xbc_act.shape[-1] - 2 * n
     ph = di // h
+    fp = island_dtype(xbc_act.dtype)    # fp32, or float64 in a float64 model
     xh = xbc_act[..., :di]
-    bmat = xbc_act[..., di:di + n].to(torch.float32)
-    cmat = xbc_act[..., di + n:].to(torch.float32)
+    bmat = xbc_act[..., di:di + n].to(fp)
+    cmat = xbc_act[..., di + n:].to(fp)
     bsz, s = xh.shape[:2]
-    xh = xh.reshape(bsz, s, h, ph).to(torch.float32)
-    dt = F.softplus(dt_raw.to(torch.float32) + p.dt_bias)
+    xh = xh.reshape(bsz, s, h, ph).to(fp)
+    dt = F.softplus(dt_raw.to(fp) + p.dt_bias)
     a = -torch.exp(p.a_log)                       # negative per-head A
     loga = dt * a[None, None, :]                  # log decay (B,S,H) < 0
     return xh, bmat, cmat, dt, loga
@@ -141,7 +148,7 @@ def mamba2_core_chunked(p: Mamba2, cfg, xbc_act, dt_raw, state,
     w_in = torch.exp(ca[..., -1:] - ca) * dtc      # (nc,B,h,C)
     dstate = torch.einsum("nbhcp,nbcN->nbhpN", w_in[..., None] * xc, bc)
 
-    hst = state.to(torch.float32)
+    hst = state.to(xh.dtype)
     y_cross = []
     for i in range(nc):
         # y_cross_t = exp(ca_t) C_t · h_in
@@ -157,7 +164,7 @@ def mamba2_core_chunked(p: Mamba2, cfg, xbc_act, dt_raw, state,
 def mamba2_core_scan(p: Mamba2, cfg, xbc_act, dt_raw, state):
     """Oracle: step-by-step recurrence."""
     xh, bmat, cmat, dt, loga = _ssm_inputs(p, cfg, xbc_act, dt_raw)
-    hst = state.to(torch.float32)
+    hst = state.to(xh.dtype)
     ys = []
     for t in range(xh.shape[1]):
         hst = torch.exp(loga[:, t])[..., None, None] * hst + \
@@ -169,24 +176,118 @@ def mamba2_core_scan(p: Mamba2, cfg, xbc_act, dt_raw, state):
     return y, hst
 
 
+def _columns(cfg, j: int, m: int, device):
+    """The columns of ``in_proj`` and the channels of the conv that rank
+    ``j`` of ``m`` computes under a split of the heads: z and x by its
+    d_inner chunk, B and C whole (every head reads them), dt by its heads.
+    ``in_proj``'s storage chunk does not line up with these parts."""
+    di, n, h = cfg.mamba_d_inner, cfg.ssm_state, cfg.mamba_heads
+    dl, hl = di // m, h // m
+
+    def span(lo, size):
+        return torch.arange(lo, lo + size, device=device)
+
+    cols = torch.cat([span(j * dl, dl), span(di + j * dl, dl),
+                      span(2 * di, 2 * n), span(2 * di + 2 * n + j * hl, hl)])
+    chans = torch.cat([span(j * dl, dl), span(di, 2 * n)])
+    return cols, chans
+
+
+class _Local:
+    """A Mamba2 block's weights as this rank computes with them: every
+    head's outside a split of the heads over ``model``; under one
+    (``tp.split``, the split step) its heads' (``in_proj`` and the conv
+    gathered whole, their gradients summed over ``model``, then cut part
+    by part by ``_columns``; ``norm`` and ``out_proj`` its d_inner
+    chunk).  The cores take it in the block's place."""
+
+    def __init__(self, p: Mamba2, cfg, device):
+        self.split = tp.split(HEADS, cfg.mamba_heads)
+        take = tp.take
+        if not self.split:
+            self.j, self.m = 0, 1
+            for name in MAMBA2_NAMES:
+                setattr(self, name, take(getattr(p, name)))
+            return
+        self.j, self.m = tp.model_rank()
+        cols, self.chans = _columns(cfg, self.j, self.m, device)
+        self.in_proj = take(p.in_proj, partial=True).index_select(1, cols)
+        self.conv_w = take(p.conv_w, partial=True).index_select(
+            1, self.chans)
+        self.conv_b = take(p.conv_b, partial=True).index_select(
+            0, self.chans)
+        for name in ("a_log", "dt_bias", "d_skip", "norm", "out_proj"):
+            setattr(self, name, take(getattr(p, name), 0))
+
+    def state_in(self, state):
+        """This rank's heads of a whole (B, H, P, N) state."""
+        if state is None or not self.split:
+            return state
+        hl = state.shape[1] // self.m
+        return state.narrow(1, self.j * hl, hl)
+
+    def tail_in(self, tail):
+        """This rank's channels of a whole (B, W-1, d_inner + 2N) tail."""
+        if tail is None or not self.split:
+            return tail
+        return tail.index_select(-1, self.chans)
+
+    def whole(self, state, tail, cfg):
+        """Under a split, the new state and conv tail whole again (every
+        rank holds B's and C's channels of the tail whole)."""
+        dl = cfg.mamba_d_inner // self.m
+        xs = tp.gather_model(tail[..., :dl], -1)
+        return tp.gather_model(state, 1), torch.cat([xs, tail[..., dl:]],
+                                                    dim=-1)
+
+
+def _gated_norm(y, z, weight, d_inner: int, split: bool, eps: float = 1e-6):
+    """``rms_norm(y * silu(z), weight)`` over the whole d_inner: under a
+    split of the heads, y, z and weight hold this rank's chunk, and the sum
+    of squares is summed over ``model`` and divided by the whole width."""
+    g = y * F.silu(z)
+    if not split:
+        return rms_norm(g, weight, eps)
+    gf = g.to(island_dtype(g.dtype))
+    var = tp.sum_over((gf * gf).sum(dim=-1, keepdim=True)) / d_inner
+    return (gf * torch.rsqrt(var + eps)).to(g.dtype) * weight
+
+
 def mamba2_apply(p: Mamba2, cfg, x, state=None, conv_tail=None,
                  use_scan: bool = False, chunk: int = 64):
     """Full block. x: (B,S,d). Returns (out, new_state, new_conv_tail).
     The scan runs when asked or when S is not a multiple of ``chunk``
-    (decode, unaligned prompts), the reference's rule."""
+    (decode, unaligned prompts), the reference's rule.
+
+    With the heads split over ``model`` (the split step) the rank computes
+    its heads (``_Local``): the input enters once (``copy_in``), the cores
+    run on H / model heads, the gated norm sums its squares over
+    ``model`` and ``out_proj``'s row-parallel product ends in one
+    all-reduce.  A given ``state`` and ``conv_tail`` are whole, and so are
+    the new ones; without them the new ones are this rank's."""
     bsz, s, _ = x.shape
     di, n, h = cfg.mamba_d_inner, cfg.ssm_state, cfg.mamba_heads
+    w = _Local(p, cfg, x.device)
+    given = state is not None or conv_tail is not None
+    state, conv_tail = w.state_in(state), w.tail_in(conv_tail)
     if state is None:
-        state = torch.zeros((bsz, h, di // h, n), dtype=torch.float32,
+        state = torch.zeros((bsz, h // w.m, di // h, n), dtype=torch.float32,
                             device=x.device)
-    zxbcdt = x @ p.in_proj
-    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
-    xbc_act, new_tail = _causal_conv(xbc, p.conv_w, p.conv_b, conv_tail)
+    if w.split:
+        x = tp.copy_in(x)
+    zxbcdt = x @ w.in_proj
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt, w.m)
+    xbc_act, new_tail = _causal_conv(xbc, w.conv_w, w.conv_b, conv_tail)
     if use_scan or s % chunk:
-        y, state_f = mamba2_core_scan(p, cfg, xbc_act, dt_raw, state)
+        y, state_f = mamba2_core_scan(w, cfg, xbc_act, dt_raw, state)
     else:
-        y, state_f = mamba2_core_chunked(p, cfg, xbc_act, dt_raw, state,
+        y, state_f = mamba2_core_chunked(w, cfg, xbc_act, dt_raw, state,
                                          chunk)
-    y = y.reshape(bsz, s, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p.norm)            # gated norm
-    return y @ p.out_proj, state_f, new_tail
+    y = y.reshape(bsz, s, di // w.m).to(x.dtype)
+    y = _gated_norm(y, z, w.norm, di, w.split)
+    out = y @ w.out_proj
+    if w.split:
+        out = tp.reduce_out(out)
+        if given:
+            state_f, new_tail = w.whole(state_f, new_tail, cfg)
+    return out, state_f, new_tail

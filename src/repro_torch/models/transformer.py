@@ -41,9 +41,11 @@ recompute gathers them again; the model's own weights (the embedding, the
 head, the final norms) are gathered for the pass.  The lookup and the logits
 split the vocab over ``model`` (``forward`` then returns this rank's vocab
 chunk), attention its heads, the MLPs their ffn and the MoE its experts;
-rwkv6's and mamba2's layers are gathered whole over ``model`` too and
-computed the same on every rank of the model group (ROADMAP queue 1 item
-9d).
+rwkv6's time mix its heads (or, where they do not divide ``model``, its
+projections' columns around a WKV run whole), its channel mix its ffn, and
+mamba2 its heads.  Caches given to such a layer (prefill, decode) stay
+whole: the layer computes on its heads of the state and gathers the new
+state over ``model``.
 """
 from __future__ import annotations
 
@@ -88,13 +90,13 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _gathered(fn, whole: bool = False):
+def _gathered(fn):
     """``fn(layer, ...)`` with the layer's parameters gathered over the
-    data axes for the call (``whole``: over ``model`` too) in a split step
+    data axes for the call in a split step
     (``distribution/tensor_parallel.py``); ``fn`` itself otherwise."""
 
     def run(lp, *args, **kwargs):
-        with tp.gather_params(lp, whole=whole):
+        with tp.gather_params(lp):
             return fn(lp, *args, **kwargs)
 
     return run
@@ -406,7 +408,9 @@ def _rwkv_layer_init(generator, cfg, dtype, device) -> RWKVLayer:
 
 
 def _rwkv_layer_apply(p: RWKVLayer, cfg, x, state):
-    """state: dict(tmix_x, cmix_x, wkv). Chunked when seq allows, else scan."""
+    """state: dict(tmix_x, cmix_x, wkv), ``wkv`` None for zeros (a
+    cache-less pass: the new ``wkv`` is then this rank's heads under a
+    split step, else whole). Chunked when seq allows, else scan."""
     n1 = rms_norm(x, p.ln1)
     if x.shape[1] % RWKV_CHUNK:
         o, last_x, wkv = rwkv.rwkv_mix_scan(p.tmix, cfg, n1, state["tmix_x"],
@@ -437,10 +441,10 @@ def _rwkv_zero_state(cfg, batch: int, device) -> dict:
 def _rwkv_stack(params: RWKVLM, cfg, x, caches=None):
     """Loop over the layers from ``caches`` (a list of per-layer states) or,
     without caches, from the zero state; returns (x, new states or None)."""
-    zero = None if caches is not None else _rwkv_zero_state(
-        cfg, x.shape[0], x.device)
+    zero = None if caches is not None else dict(
+        _rwkv_zero_state(cfg, x.shape[0], x.device), wkv=None)
     new_caches = None if caches is None else []
-    body = _remat(_gathered(_rwkv_layer_apply, whole=True), cfg)
+    body = _remat(_gathered(_rwkv_layer_apply), cfg)
     for i, lp in enumerate(params.layers):
         x, st = body(lp, cfg, x, zero if caches is None else caches[i])
         if new_caches is not None:
@@ -495,7 +499,7 @@ def _hybrid_stack(params: HybridLM, cfg, x, *, positions=None, cache=None):
     new = None if cache is None else {
         "layers": [], "shared": list(cache["shared"]),
         "idx": cache["idx"] + x.shape[1]}
-    mamba_body = _remat(_gathered(_mamba_layer_apply, whole=True), cfg)
+    mamba_body = _remat(_gathered(_mamba_layer_apply), cfg)
     shared_body = _remat(_gathered(_layer_apply), cfg)
     for i, lp in enumerate(params.layers):
         lc = None if cache is None else cache["layers"][i]

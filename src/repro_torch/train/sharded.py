@@ -17,10 +17,10 @@ and each microbatch gathers again.  Along ``model`` the products are split
 where ``resolve_spec`` splits the axis: heads (``wq``, ``wo``; MLA's
 ``wuq``, ``wuk``, ``wuv``), ffn (the MLPs), vocab (the lookup, the logits
 and the cross entropy) and experts (the MoE's global, grouped and a2a
-dispatch); a width that does not divide the ``model`` size is computed
-whole on every rank of the model group.  rwkv6's mixes and mamba2's layers
-are not split: their weights are gathered whole over ``model`` too and
-their compute is replicated along it (ROADMAP queue 1 item 9d).  The rows:
+dispatch), rwkv6's time mix (heads, or its projections' columns where
+the heads do not divide) and channel mix (ffn), and mamba2's heads; a
+width that does not divide the ``model`` size is computed whole on every
+rank of the model group.  The rows:
 each microbatch is cut from the global batch as the single-device step
 cuts it, then split over the data axes present as ``ACT_RULES["batch"]``
 says; ranks along ``model`` take the same rows.  ``lm_loss`` normalises by

@@ -62,9 +62,11 @@ STEP_CASES = {
                        1, 2, 1e-2),
 }
 #: the other families, whose first batch's gradients are held on every
-#: mesh: rwkv6's and mamba2's layers computed whole along model, zamba2's
+#: mesh: rwkv6's time and channel mixes, mamba2's layers and zamba2's
 #: shared block, whisper's encoder and cross-attention and the vlm's cross
-#: layers split
+#: layers split (``tests/test_torch_distributed_ssm.py`` holds rwkv6 and
+#: mamba2 at seq 64, where their chunked forms run, an rwkv6 whose heads
+#: do not divide ``model``, their caches and their steps)
 FAMILY_CASES = {
     "rwkv": ("rwkv6-3b", {}, 1, 2, 1e-2),
     "zamba": ("zamba2-1.2b", {}, 1, 2, 1e-2),
@@ -74,7 +76,10 @@ FAMILY_CASES = {
 CASES = {**STEP_CASES, **FAMILY_CASES}
 #: step cases whose steps run in float64 (their gradients are held in fp32
 #: too): see ``tests/test_torch_distributed.py``'s docstring
-FLOAT64_STEPS = ("yi",)
+FLOAT64_STEPS = ("yi", "moonshot_global", "moonshot_grouped", "deepseek",
+                 "yi_part_groups")
+#: cases whose gradients are held in float64 (the same docstring)
+FLOAT64_GRADS = ("rwkv",)
 #: the (data, model) meshes every case runs on
 MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}
 
@@ -89,10 +94,11 @@ def tcfg_for(case: str) -> TrainConfig:
 
 
 def cfg_for(case: str, step: bool = False):
-    """The case's smoke config; ``step``: as its step runs."""
+    """The case's smoke config; ``step``: as its step runs, else as its
+    gradients are held."""
     arch, over, *_ = CASES[case]
     cfg = get_smoke_config(arch).replace(**over)
-    if step and case in FLOAT64_STEPS:
+    if case in (FLOAT64_STEPS if step else FLOAT64_GRADS):
         cfg = cfg.replace(dtype="float64")
     return cfg
 

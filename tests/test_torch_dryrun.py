@@ -97,6 +97,11 @@ def test_input_specs_run_on_tiny_mesh(tiny_mesh, arch, shape_name):
     assert st["flops_per_device"] > 0
     assert st["unfused_bytes_per_device"] > 0
     assert rec["memory"]["peak_bytes"] >= rec["memory"]["params_bytes"] > 0
+    # what holds the peak: groups of live storages, largest first, within
+    # the peak
+    held = [g["bytes"] for g in st["peak_holders"]]
+    assert held and held == sorted(held, reverse=True)
+    assert sum(held) <= rec["memory"]["peak_bytes"]
     if shape.kind == "train":
         # every collective is a 1-rank one, and each is still counted:
         # the gradient mean and the global norm are raw all-reduces
