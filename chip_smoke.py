@@ -6,7 +6,8 @@
     python3 chip_smoke.py --sharded-sweep  # device, build, the sweep's split
     python3 chip_smoke.py --train-probe    # device, build, train_probe
     python3 chip_smoke.py --sharded-train  # device, build, train_entry,
-                                           # sharded_train, sharded_rwkv
+                                           # sharded_train, sharded_rwkv,
+                                           # split_decode
     python3 chip_smoke.py --dryrun-only    # device, build, dryrun_arch
 
 Phases, each printing one JSON line:
@@ -242,19 +243,37 @@ Phases, each printing one JSON line:
                the wkv call's three kernels counted in its trace.  The
                split of rwkv6's layers over model is held on the CPU
                (tests/test_torch_distributed_ssm.py)
+  split_decode decode over a cache split along kv_seq, one attention layer
+               at full width (SPLIT_DECODE_CASES): yi-6b's GQA with a bf16
+               and an int8 cache and deepseek-v2's absorbed MLA, 8 rows
+               against 32768 positions in 16 blocks, and zamba2-1.2b's
+               shared block, 1 row against 524288 in 256; the cache filled
+               from a seeded generator up to a position inside a middle
+               block; each block attended as one rank attends it and the
+               partial softmaxes combined by models/attention.py's
+               combine_partials, against the whole-cache layer within 1e-2
+               of max |out|; the new row in exactly that block, bitwise the
+               whole cache's; a control (that block normalised alone) that
+               must fail; the whole-cache call's, one block's call's and
+               the combine's ms, not gated.  The split across ranks is held
+               on the CPU (tests/test_torch_distributed_decode.py)
   dryrun_arch  python -m repro_torch.launch.dryrun --arch yi-6b --shape
                train_4k --multi-pod both, --arch deepseek-v2-236b --shape
-               decode_32k, --arch rwkv6-3b --shape train_4k and --arch
-               zamba2-1.2b --shape train_4k (the last three --multi-pod
-               off) as subprocesses, side by side, into build/dryrun (fake
-               tensors on a fake 256/512-rank group; the full run starts
-               them before train, so they overlap the card's phases): exit
-               0, each record's analytic equal to cell_analytics, FLOPs
-               per device > 0, launch.roofline's load_rows and
-               render_markdown over them, each cell's seconds; yi-6b's,
-               rwkv6-3b's and zamba2-1.2b's train_4k on 16x16 against their
-               caps (FLOPs over analytic_flops / 256, peak GB); --all only
-               if those cells say it takes under 60 s
+               decode_32k, --arch rwkv6-3b --shape train_4k, --arch
+               zamba2-1.2b --shape train_4k, --arch moonshot-v1-16b-a3b
+               --shape decode_32k and --arch zamba2-1.2b --shape long_500k
+               (all but the first --multi-pod off) as subprocesses, side by
+               side, into build/dryrun (fake tensors on a fake 256/512-rank
+               group; the full run starts them before train, so they
+               overlap the card's phases): exit 0, each record's analytic
+               equal to cell_analytics, FLOPs per device > 0,
+               launch.roofline's load_rows and render_markdown over them,
+               each cell's seconds; yi-6b's, rwkv6-3b's and zamba2-1.2b's
+               train_4k on 16x16 against their caps (FLOPs over
+               analytic_flops / 256, peak GB), moonshot's and deepseek's
+               decode_32k and zamba2-1.2b's long_500k against their peak
+               caps (10, 10 and 2 GB); --all only if those cells say it
+               takes under 60 s
 
 then a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 
@@ -598,11 +617,26 @@ SHARDED_PEAK_SLACK_GB = 0.5
 #: sharded_rwkv: rwkv6-3b's step at batch 1 of RWKV_SEQ tokens in one
 #: microbatch, at this depth (of RWKV_LAYERS)
 SHARDED_RWKV_LAYERS, SHARDED_RWKV_BATCH = 6, 1
+#: split_decode: (name, arch, config overrides, rows, cache length,
+#: blocks): yi-6b's GQA with a bf16 and an int8 cache and deepseek-v2's
+#: absorbed MLA at decode_32k's rows a rank (128 over 16 data ranks) in 16
+#: blocks, zamba2-1.2b's shared block at long_500k's one row in 256
+SPLIT_DECODE_CASES = (
+    ("gqa", "yi-6b", {}, 8, 32_768, 16),
+    ("gqa_int8", "yi-6b", {"kv_cache_quant": True}, 8, 32_768, 16),
+    ("mla_absorbed", "deepseek-v2-236b", {"mla_absorb": "auto"}, 8, 32_768,
+     16),
+    ("zamba2_shared", "zamba2-1.2b", {}, 1, 524_288, 256),
+)
+#: the blocked layer's output against the whole-cache layer's, of max |out|
+SPLIT_DECODE_RTOL, SPLIT_DECODE_SEED = 1e-2, 0
 #: dryrun_arch's commands: (arch, shape, --multi-pod)
 DRYRUN_COMMANDS = (("yi-6b", "train_4k", "both"),
                    ("deepseek-v2-236b", "decode_32k", "off"),
                    ("rwkv6-3b", "train_4k", "off"),
-                   ("zamba2-1.2b", "train_4k", "off"))
+                   ("zamba2-1.2b", "train_4k", "off"),
+                   ("moonshot-v1-16b-a3b", "decode_32k", "off"),
+                   ("zamba2-1.2b", "long_500k", "off"))
 #: the dry run's yi-6b x train_4k on the fake 16x16 group: each rank's
 #: FLOPs over analytic_flops / 256, and its peak of live bytes
 DRYRUN_YI_FLOPS_RATIO_MAX, DRYRUN_YI_PEAK_GB_MAX = 2.5, 80.0
@@ -610,6 +644,11 @@ DRYRUN_YI_FLOPS_RATIO_MAX, DRYRUN_YI_PEAK_GB_MAX = 2.5, 80.0
 #: over model: FLOPs over analytic_flops / 256 at most these, peaks below
 #: those of their layers computed whole along model (120.3, 32.4 GB)
 DRYRUN_SSM_CELLS = {"rwkv6-3b": (4.0, 120.3), "zamba2-1.2b": (3.0, 32.4)}
+#: decode cells on 16x16 with the cache split along kv_seq: peak GB caps
+#: (whole caches: 111.7, 27.1 and 28.2 GB a rank)
+DRYRUN_DECODE_PEAK_GB = {"moonshot-v1-16b-a3b__decode_32k__sp": 10.0,
+                         "deepseek-v2-236b__decode_32k__sp": 10.0,
+                         "zamba2-1.2b__long_500k__sp": 2.0}
 #: --train-probe: the main path's 4 steps at these learning rates (full
 #: depth, bf16), and at TRAIN_GATE_LAYERS layers in bf16 and in fp32 at the
 #: main path's 3e-4
@@ -2552,12 +2591,12 @@ class Smoke:
 
     def dryrun_arch(self) -> None:
         """The --arch dry run as subprocesses into build/dryrun
-        (start_dryruns, unless started before): yi-6b x train_4k on both
-        meshes, deepseek-v2-236b x decode_32k, rwkv6-3b x train_4k and
-        zamba2-1.2b x train_4k on 16x16 (exit 0; each record's analytic
-        equal to cell_analytics, FLOPs per device > 0; roofline.load_rows
-        and render_markdown accept them; yi-6b's, rwkv6-3b's and
-        zamba2-1.2b's train_4k against their caps); then --all
+        (start_dryruns, unless started before): DRYRUN_COMMANDS, yi-6b x
+        train_4k on both meshes, the rest on 16x16 (exit 0; each record's
+        analytic equal to cell_analytics, FLOPs per device > 0;
+        roofline.load_rows and render_markdown accept them; yi-6b's,
+        rwkv6-3b's and zamba2-1.2b's train_4k against their caps, the
+        decode cells' peaks against DRYRUN_DECODE_PEAK_GB); then --all
         --multi-pod off if the cells measured say it would take under
         60 s."""
         import os
@@ -2616,7 +2655,8 @@ class Smoke:
                 "comm_debug_counts": st["comm_debug_counts"],
                 "memory_gb": {k: v / 1e9 for k, v in rec["memory"].items()},
                 "peak_holders": st["peak_holders"]})
-        check(len(cells) == 5, f"{len(cells)} records, want 5")
+        check(len(cells) == len(DRYRUN_COMMANDS) + 1,
+              f"{len(cells)} records, want {len(DRYRUN_COMMANDS) + 1}")
         by_cell = {c["cell"]: {"flops_over_share": c["flops_over_share"],
                                "peak_gb": c["peak_gb"]} for c in cells}
         yi_split = by_cell["yi-6b__train_4k__sp"]
@@ -2630,6 +2670,11 @@ class Smoke:
                   and ssm[arch]["peak_gb"] < peak_max,
                   f"{arch} x train_4k on 16x16: {ssm[arch]}, caps "
                   f"{ratio_max} and {peak_max} GB")
+        decode = {}
+        for cell, peak_max in DRYRUN_DECODE_PEAK_GB.items():
+            decode[cell] = by_cell[cell]
+            check(decode[cell]["peak_gb"] < peak_max,
+                  f"{cell} on 16x16: {decode[cell]}, cap {peak_max} GB")
         md = roofline.render_markdown(roofline.load_rows(str(out)))
         mp_rows = roofline.load_rows(str(out), multi_pod=True)
         check(len(mp_rows) == 1
@@ -2651,7 +2696,7 @@ class Smoke:
         emit({"phase": "dryrun_arch", "card": self.card, "runs": runs,
               "wall_s": wall, "waited_s": waited,
               "yi_6b_train_4k_16x16": yi_split,
-              "ssm_train_4k_16x16": ssm,
+              "ssm_train_4k_16x16": ssm, "split_decode_16x16": decode,
               "cells": cells, "roofline_markdown": md,
               "all_estimate_s": estimate, "all_s": all_run,
               "note": "fake tensors on a fake 256/512-rank group: FLOPs, "
@@ -5616,6 +5661,142 @@ class Smoke:
               "second_step_s": step_s, "peak_gb": peak,
               "phase_s": time.perf_counter() - t_phase})
 
+    def _split_decode_case(self, name, arch, over, rows, t, nb) -> dict:
+        """One attention layer of ``arch`` at full width, one new token
+        against a cache of ``t`` positions filled from a seeded generator
+        up to a position inside a middle block: the whole-cache path, then
+        the cache cut into ``nb`` blocks, each attended as one rank of a
+        split decode would attend it (``tp.seq_block`` and ``tp.seq_stack``
+        stood in for by this block and a stack in this process), and the
+        partials combined by the same ``combine_partials``."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.distribution import tensor_parallel as tp
+        from repro_torch.models import attention as attn
+        from repro_torch.models import transformer as T
+
+        cfg = get_config(arch).replace(max_seq=t, **over)
+        dtype, dev = T._dtype(cfg), torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(SPLIT_DECODE_SEED)
+        mla = cfg.attention_type == "mla"
+        if mla:
+            layer = attn.mla_init(gen, cfg, dtype, dev)
+            cache = attn.mla_cache_init(cfg, rows, t, dtype, dev)
+            apply = attn.mla_apply
+        else:
+            layer = attn.gqa_init(gen, cfg, dtype, dev)
+            cache = attn.gqa_cache_init(cfg, rows, t, dtype, dev)
+            apply = attn.gqa_apply
+        tl = t // nb
+        pos = (nb // 2) * tl + tl // 2 + 3        # inside block nb // 2
+        leaves = [k for k in cache if k != "idx"]
+        for k in leaves:
+            fill = cache[k][:, :pos]
+            if fill.dtype == torch.int8:
+                fill.copy_(torch.randint(-127, 128, fill.shape, device=dev,
+                                         generator=gen, dtype=torch.int8))
+            elif k.endswith("_scale"):
+                fill.copy_(torch.rand(fill.shape, device=dev, generator=gen)
+                           * 0.02 + 0.005)
+            else:
+                fill.copy_(torch.randn(fill.shape, device=dev, generator=gen,
+                                       dtype=torch.float32))
+        cache["idx"] = pos
+        x = torch.randn((rows, 1, cfg.d_model), device=dev, generator=gen,
+                        dtype=torch.float32).to(dtype)
+        positions = torch.full((rows, 1), pos, dtype=torch.int64, device=dev)
+
+        def copy():
+            return {k: (v.clone() if k != "idx" else v)
+                    for k, v in cache.items()}
+
+        whole, blocked = copy(), copy()
+
+        def block(b):
+            return {k: (v[:, b * tl:(b + 1) * tl] if k != "idx" else v)
+                    for k, v in blocked.items()}
+
+        with torch.inference_mode():
+            want, _ = apply(layer, cfg, x, positions=positions, cache=whole)
+            whole_ms = self.time_ms(lambda: apply(
+                layer, cfg, x, positions=positions, cache=whole))
+        real = tp.seq_block, tp.seq_stack
+        at, parts = [0], []
+
+        def own(packed, blk):
+            parts.append(packed)
+            return packed[None]
+
+        try:
+            tp.seq_block = lambda n: tp.SeqBlock(at[0] * tl, tl, ())
+            tp.seq_stack = own
+            with torch.inference_mode():
+                for b in range(nb):
+                    at[0] = b
+                    apply(layer, cfg, x, positions=positions, cache=block(b))
+                changed = [b for b in range(nb) if any(
+                    not torch.equal(blocked[k][:, b * tl:(b + 1) * tl],
+                                    cache[k][:, b * tl:(b + 1) * tl])
+                    for k in leaves)]
+                landed = all(torch.equal(blocked[k], whole[k])
+                             for k in leaves)
+                stack = torch.stack(parts)
+                tp.seq_stack = lambda packed, blk: stack
+                at[0] = 0
+                got, _ = apply(layer, cfg, x, positions=positions,
+                               cache=block(0))
+                # control: the block holding the new row normalised alone
+                mid = stack[nb // 2][None]
+                tp.seq_stack = lambda packed, blk: mid
+                ctrl, _ = apply(layer, cfg, x, positions=positions,
+                                cache=block(0))
+                at[0] = nb // 2
+                tp.seq_stack = lambda packed, blk: packed[None]
+                block_ms = self.time_ms(lambda: apply(
+                    layer, cfg, x, positions=positions,
+                    cache=block(nb // 2)))
+                combine_ms = self.time_ms(lambda: attn.combine_partials(
+                    stack[..., 0], stack[..., 1], stack[..., 2:]))
+        finally:
+            tp.seq_block, tp.seq_stack = real
+        rel, ctrl_rel = _rel(got, want), _rel(ctrl, want)
+        check(changed == [nb // 2] and landed,
+              f"split_decode {name}: the new row landed in blocks {changed}"
+              f" (want [{nb // 2}]), bitwise as the whole cache's: {landed}")
+        check(rel <= SPLIT_DECODE_RTOL, f"split_decode {name}: blocked "
+              f"against whole {rel:.3e} > {SPLIT_DECODE_RTOL}")
+        check(ctrl_rel > SPLIT_DECODE_RTOL, f"split_decode {name}: the "
+              f"control (one block normalised alone) passed at "
+              f"{ctrl_rel:.3e}")
+        return {"case": name, "arch": arch, "overrides": over,
+                "rows": rows, "cache_len": t, "blocks": nb,
+                "block_len": tl, "position": pos,
+                "cache_gb": sum(cache[k].numel() * cache[k].element_size()
+                                for k in leaves) / 1e9,
+                "rel_err_of_max": rel, "control_rel_err": ctrl_rel,
+                "row_landed_in_block": changed, "row_bitwise": landed,
+                "whole_ms": whole_ms, "block_ms": block_ms,
+                "combine_ms": combine_ms}
+
+    def split_decode(self) -> None:
+        """Decode over a cache split along kv_seq, one layer at full width
+        on the card (SPLIT_DECODE_CASES): the blocked path against the
+        whole-cache path within SPLIT_DECODE_RTOL of max |out|, the new row
+        in exactly one block, bitwise the whole cache's; the whole-cache
+        call's time beside one block's call (one rank's attention, no
+        collective) and the combine's, not gated.  The split across ranks
+        is held on the CPU (tests/test_torch_distributed_decode.py)."""
+        t_phase = time.perf_counter()
+        self._free()
+        cases = [self._split_decode_case(*c) for c in SPLIT_DECODE_CASES]
+        self._free()
+        emit({"phase": "split_decode", "card": self.card,
+              "rtol": SPLIT_DECODE_RTOL, "cases": cases,
+              "phase_s": time.perf_counter() - t_phase,
+              "note": "ms: medians of single calls (CUDA events); a block "
+                      "call is one rank's attention without its "
+                      "all-gathers"})
+
     def train_probe(self) -> None:
         """Where the main path's loss goes over its TRAIN_STEPS steps, from
         the same seed-0 weights and batches each time: at full depth in bf16
@@ -5720,6 +5901,7 @@ def main() -> int:
         smoke.train_entry()
         smoke.sharded_train()
         smoke.sharded_rwkv()
+        smoke.split_decode()
         return 0
     if "--sharded-sweep" in sys.argv[1:]:
         emit({"phase": "sharded_sweep", "card": smoke.card,
@@ -5757,6 +5939,7 @@ def main() -> int:
     smoke.train_entry()
     smoke.sharded_train()
     smoke.sharded_rwkv()
+    smoke.split_decode()
     smoke.dryrun_arch()
     smoke.kernels_line()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -43,6 +43,15 @@ reference (``src/repro/distribution/sharding.py:110-117``).  Outside a
 split step every helper is the identity, and on a mesh of one rank every
 collective is left out, so the step's ops are the single-device step's.
 
+A decode step may be handed its caches as this rank's blocks along
+``kv_seq`` (``use_split``'s ``kv_len``; ``launch/specs.py``): where the
+activation rules split ``kv_seq`` (``model`` at decode_32k, ``data`` then
+``model`` at long_500k) ``seq_block`` says which positions the rank holds
+and over which groups, and ``seq_stack`` gathers each rank's partial
+softmax over them (``models/attention.py``), as the reference's GSPMD
+keeps the cache split along ``kv_seq``
+(``src/repro/models/attention.py:231-232``, ``:369``).
+
 The context is thread-local, as ``use_sharding``'s is: autograd runs a
 CUDA backward, and so remat's recompute, in its own device thread, which
 ``models/transformer.py``'s remat opens with the contexts the forward saw
@@ -237,6 +246,9 @@ class _Split:
     #: a weight gathered over data -> (its model dim or None, global shape)
     gathered: WeakIdKeyDictionary = dataclasses.field(
         default_factory=WeakIdKeyDictionary)
+    #: the global length along ``kv_seq`` of the caches the step is handed
+    #: as this rank's blocks (``launch/specs.py``'s decode); None: whole
+    kv_len: int | None = None
 
 
 _STATE = threading.local()
@@ -246,7 +258,7 @@ def current() -> _Split | None:
     return getattr(_STATE, "ctx", None)
 
 
-def _open(mesh) -> _Split:
+def _open(mesh, kv_len: int | None = None) -> _Split:
     sizes = shd.mesh_shape(mesh)
     names = list(sizes)
     coord = mesh.get_coordinate()
@@ -258,16 +270,18 @@ def _open(mesh) -> _Split:
         j=0 if md is None else coord[md],
         model_group=None if md is None else mesh.get_group(MODEL_AXIS),
         model_dim=md, data=data,
-        dsh=math.prod(sizes.get(a, 1) for a in DATA_AXES))
+        dsh=math.prod(sizes.get(a, 1) for a in DATA_AXES), kv_len=kv_len)
 
 
 @contextlib.contextmanager
-def use_split(model: nn.Module, mesh):
+def use_split(model: nn.Module, mesh, kv_len: int | None = None):
     """A split step over ``mesh`` for the block: the model's DTensor
     parameters are this rank's blocks (``nn.Parameter``s sharing their
     storage, asking for no gradient until the step says so), restored as
-    DTensors after it."""
-    ctx = _open(mesh)
+    DTensors after it.  ``kv_len``: the step's caches are this rank's
+    blocks along ``kv_seq`` of caches of that global length, where the
+    rules split it (``seq_block``)."""
+    ctx = _open(mesh, kv_len)
     saved = []
     for name, p in list(model.named_parameters()):
         if not isinstance(p, DTensor):
@@ -355,6 +369,58 @@ def split(axis: str, size: int) -> bool:
     rules = sctx.act_rules if sctx is not None else shd.ACT_RULES
     return shd.resolve_spec((axis,), rules, ctx.mesh, (size,)) == (
         MODEL_AXIS,)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqBlock:
+    """This rank's block of a cache split along ``kv_seq``: global
+    positions [offset, offset + length), and the process groups of the
+    mesh axes ``kv_seq`` resolves to (larger than one), major first."""
+    offset: int
+    length: int
+    groups: tuple
+
+
+def seq_block(t: int) -> SeqBlock | None:
+    """This rank's block of the step's caches along ``kv_seq``, for a
+    cache tensor of ``t`` positions, or None where the caches are whole:
+    outside a split step, in one not handed blocks (``use_split``'s
+    ``kv_len``), where the activation rules do not split ``kv_seq`` (or
+    ``split()``'s divisibility fallback keeps it whole), or where its axes
+    are one rank.  A cache of another length than the block's raises: a
+    rule that splits ``kv_seq`` never falls back to a whole cache."""
+    ctx = current()
+    if ctx is None or ctx.kv_len is None:
+        return None
+    sctx = shd.current_ctx()
+    rules = sctx.act_rules if sctx is not None else shd.ACT_RULES
+    spec = shd.resolve_spec(("kv_seq",), rules, ctx.mesh, (ctx.kv_len,))
+    sizes = shd.mesh_shape(ctx.mesh)
+    axes = () if not spec else (
+        (spec[0],) if isinstance(spec[0], str) else tuple(spec[0]))
+    axes = tuple(a for a in axes if sizes[a] > 1)
+    if not axes:
+        return None
+    names, coord = list(sizes), ctx.mesh.get_coordinate()
+    block = 0
+    for a in axes:
+        block = block * sizes[a] + coord[names.index(a)]
+    length = ctx.kv_len // math.prod(sizes[a] for a in axes)
+    if t != length:
+        raise ValueError(f"a cache of {t} positions in a step handed blocks "
+                         f"of {length} along kv_seq ({axes})")
+    return SeqBlock(block * length, length,
+                    tuple(ctx.mesh.get_group(a) for a in axes))
+
+
+def seq_stack(x: torch.Tensor, blk: SeqBlock) -> torch.Tensor:
+    """Every rank's ``x`` of ``blk``'s groups, stacked along a new first
+    dim in block order (an all-gather over each group, the minor first).
+    No gradient: decode runs without autograd."""
+    out = x[None]
+    for g in reversed(blk.groups):
+        out = _gather(out, 0, g)
+    return out
 
 
 def model_rank() -> tuple[int, int]:

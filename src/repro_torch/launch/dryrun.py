@@ -32,11 +32,12 @@ What the port does is what is recorded: each step is a split step
 (``distribution/tensor_parallel.py``): heads, ffn, vocab and experts split
 over ``model`` where their widths divide it (rwkv6's and mamba2's layers
 included), each layer's weights gathered over the data axes as the layer
-runs.  Per-device FLOPs exceed ``analytic_flops / 256`` by remat's
-recompute, ``xla``'s full square of attention scores, and whatever stays
-whole along ``model``: a width that does not divide it, such as rwkv6-3b's
-WKV and group norm on its 40 heads over 16, and mamba2's B and C with
-the conv on them.
+runs, and a decode step's caches kept split along ``kv_seq``, every head
+attending the rank's block.  Per-device FLOPs exceed
+``analytic_flops / 256`` by remat's recompute, ``xla``'s full square of
+attention scores, and whatever stays whole along ``model``: a width that
+does not divide it, such as rwkv6-3b's WKV and group norm on its 40 heads
+over 16, and mamba2's B and C with the conv on them.
 
 ``--domain-map DOMAIN`` derives the domain's ``MappingArtifact`` (mock
 backend, the artifact store at ``$REPRO_ARTIFACT_CACHE``), deploys it

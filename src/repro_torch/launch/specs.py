@@ -22,9 +22,16 @@ and extra inputs are plain global tensors and ``batch_specs`` is the layout
 the step applies.  The prefill and decode steps are split steps, as the
 sharded train step is (``distribution/tensor_parallel.py``): each layer
 gathers its weights over the data axes, and heads, ffn, vocab and experts
-are split over ``model`` (their logits are this rank's vocab chunk);
-decode gathers each cache leaf over every mesh axis but the batch's, runs
-``decode_step`` on its rows and keeps its shard of the new cache.
+are split over ``model`` (their logits are this rank's vocab chunk).
+Decode (``decode_fn``) hands ``decode_step`` each cache leaf with a
+``kv_seq`` axis as this rank's block of it, split along the sequence as the
+rules say (``model`` at decode_32k, ``data`` then ``model`` at long_500k),
+and gets it back as that block, written in place: the attention runs every
+head over the block and combines the partial softmaxes across the ranks
+that hold the sequence (``models/attention.py``), so no such leaf is ever
+gathered.  The other leaves (rwkv6's and mamba2's states, conv tails,
+whisper's ``cross`` along ``frames``) are gathered over every mesh axis but
+the batch's, and the rank keeps its shard of the new ones.
 
 The port's cache is a list of per-layer dicts (``models/transformer.py``
 ``init_cache``), so ``cache_specs`` gives each layer's leaves the
@@ -175,14 +182,20 @@ def _rows(t, spec: tuple, mesh):
     return shd.local_shard(t, mesh, shd.placements(spec, mesh))
 
 
-def _gather_but_batch(t: DTensor, batch_dim: int) -> torch.Tensor:
-    """This rank's block of ``t`` whole along every dim but ``batch_dim``
-    (an all-gather over each other mesh dim it is sharded on)."""
-    pl = [p if isinstance(p, Shard) and p.dim == batch_dim else Replicate()
+def _gather_but(t: DTensor, dims: tuple) -> torch.Tensor:
+    """This rank's block of ``t`` whole along every dim but ``dims`` (an
+    all-gather over each other mesh dim it is sharded on)."""
+    pl = [p if isinstance(p, Shard) and p.dim in dims else Replicate()
           for p in t.placements]
     if list(pl) != list(t.placements):
         t = t.redistribute(t.device_mesh, pl)
     return t.to_local()
+
+
+def _gather_but_batch(t: DTensor, batch_dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` whole along every dim but ``batch_dim``:
+    a cache leaf without a ``kv_seq`` axis."""
+    return _gather_but(t, (batch_dim,))
 
 
 def abstract_params(cfg: ModelConfig):
@@ -249,30 +262,55 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh, tcfg=None,
 
     # decode: one token against a seq_len cache
     extra_len = cfg.encoder_seq if cfg.family == "audio" else 0
-    cache = T.init_cache(cfg, b, s, extra_len, device="cpu")
-    layout = cache_layout(cfg, cache, mesh, rules)
-    axes = cache_specs(cfg)
-    cache = tree_map(
-        lambda _, spec, t: shd.distribute(t, shd.NamedSharding(mesh, spec)),
-        axes, layout, cache)
+    cache = lay_out_cache(cfg, T.init_cache(cfg, b, s, extra_len,
+                                            device="cpu"), mesh, rules)
     token = torch.zeros((b, 1), dtype=torch.int64)
     dec_extra = extra if cfg.family == "vlm" else None
+    return (decode_fn(cfg, shape, mesh, rules),
+            (params, token, cache, dec_extra), (2,))
 
-    def keep(ax, spec, leaf):
-        # the rows are this rank's already: cut the other dims only
-        bd = ax.index("batch")
-        pl = [Replicate() if isinstance(q, Shard) and q.dim == bd else q
-              for q in shd.placements(spec, mesh)]
-        return shd.local_shard(leaf, mesh, pl)
+
+def lay_out_cache(cfg: ModelConfig, cache, mesh, rules: dict):
+    """A cache every rank holds whole, the same, as DTensors laid out by
+    ``cache_layout``; ``idx`` as it is."""
+    return tree_map(
+        lambda _, spec, t: shd.distribute(t, shd.NamedSharding(mesh, spec)),
+        cache_specs(cfg), cache_layout(cfg, cache, mesh, rules), cache)
+
+
+def _dims(ax: tuple) -> tuple:
+    """The dims of a cache leaf that stay this rank's blocks in a decode
+    step: the batch's, and the sequence's where the leaf has ``kv_seq``."""
+    return tuple(ax.index(a) for a in ("batch", "kv_seq") if a in ax)
+
+
+def decode_fn(cfg: ModelConfig, shape: ShapeSpec, mesh, rules: dict):
+    """The split decode step of a cell: ``fn(params, token, cache, extra)``
+    with ``cache`` laid out by ``lay_out_cache`` (the global token, the
+    vlm's global states) -> (this rank's rows and vocab chunk of the
+    logits, its block of each new cache leaf).  Run it under
+    ``shd.use_sharding(mesh, act_rules=rules)``."""
+    specs = batch_specs(cfg, shape, mesh, rules)
+    axes = cache_specs(cfg)
+
+    def local(ax, leaf):
+        # a kv_seq leaf: its block (to_local() under act_rules_for's rules)
+        if "kv_seq" in ax:
+            return _gather_but(leaf, _dims(ax))
+        return _gather_but_batch(leaf, ax.index("batch"))
+
+    def keep(ax, leaf, new):
+        # the rows (and a kv_seq leaf's block) are this rank's already:
+        # cut the other dims only
+        pl = [Replicate() if isinstance(q, Shard) and q.dim in _dims(ax)
+              else q for q in leaf.placements]
+        return shd.local_shard(new, mesh, pl)
 
     def fn(p, t, c, e):
-        local = tree_map(
-            lambda ax, leaf: _gather_but_batch(leaf, ax.index("batch")),
-            axes, c)
-        with tp.use_split(p, mesh):
+        with tp.use_split(p, mesh, kv_len=shape.seq_len):
             logits, new_cache = T.decode_step(
-                p, cfg, _rows(t, specs["tokens"], mesh), local,
-                _rows(e, extra_spec, mesh))
-        return logits, tree_map(keep, axes, layout, new_cache)
+                p, cfg, _rows(t, specs["tokens"], mesh),
+                tree_map(local, axes, c), _rows(e, specs.get("extra"), mesh))
+        return logits, tree_map(keep, axes, c, new_cache)
 
-    return fn, (params, token, cache, dec_extra), (2,)
+    return fn

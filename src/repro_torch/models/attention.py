@@ -19,7 +19,12 @@ encoder or vision states, no RoPE, no mask, no cache) go through ``_sdpa``,
 as in the reference.
 
 Caches are updated in place (the reference returns new arrays); the cache
-dict's ``idx`` is a Python int.
+dict's ``idx`` is a Python int.  In a split decode step whose caches are
+this rank's blocks along ``kv_seq`` (``tp.seq_block``) every head attends
+the rank's block (``_sdpa_block``, ``_mla_block``: a partial softmax), the
+partials of the ranks holding the sequence are combined
+(``combine_partials``) and the rank keeps its own heads; only the block
+holding a new position writes it.
 """
 from __future__ import annotations
 
@@ -71,6 +76,80 @@ def _sdpa(q, k, v, n_kv_heads: int, q_pos=None, chunk: int = _Q_CHUNK,
     return torch.cat([
         block(q[:, c:c + chunk], None if q_pos is None else q_pos[:, c:c + chunk])
         for c in range(0, s, chunk)], dim=1)
+
+
+def _block_softmax(logits, valid):
+    """The partial softmax of ``logits`` (..., t) over the positions
+    ``valid`` marks (broadcast to it): (row max, sum of exps, exps), the
+    exps exactly 0 where not valid.  A row with no valid position gives
+    max ``NEG_INF``, sum 0 and no exp, so it adds nothing to a combine."""
+    logits = logits.masked_fill(~valid, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None]).masked_fill(~valid, 0.0)
+    return m, p.sum(dim=-1), p
+
+
+def combine_partials(m, l, o):
+    """The attention output from the partial softmaxes of the blocks of one
+    cache, stacked along dim 0: max m and sum l (n, B, S, H), unnormalised
+    output o (n, B, S, H, D) -> (B, S, H, D).  Each block is rescaled to the
+    global max; a block with no valid position (m = ``NEG_INF``, l = 0)
+    adds exactly 0."""
+    top = m.amax(dim=0)
+    w = torch.exp(m - top)
+    den = (l * w).sum(dim=0)
+    return (o * w[..., None]).sum(dim=0) / torch.clamp(den, min=1e-30)[
+        ..., None]
+
+
+def _sdpa_block(q, k, v, n_kv_heads: int, q_pos, offset: int,
+                logit_dim: int | None = None):
+    """``_sdpa``'s partial softmax of every head of q (B, S, H, D) against
+    a block of k, v (B, t, Hk, D) at global positions [offset, offset + t),
+    causal against q_pos (B, S): (m, l, o) for ``combine_partials``, in
+    the island dtype, m and l (B, S, H), o (B, S, H, Dv)."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    g = h // n_kv_heads
+    scale = (logit_dim or d) ** -0.5
+    kf = k.to(island_dtype(k.dtype))
+    vf = v.to(kf.dtype)
+    qg = q.reshape(b, s, n_kv_heads, g, d).to(kf.dtype)
+    logits = torch.einsum("bskgd,btkd->bskgt", qg, kf) * scale
+    kv_pos = offset + torch.arange(t, device=q.device)
+    valid = kv_pos <= q_pos[:, :, None, None, None]          # (B, S, 1, 1, t)
+    m, l, p = _block_softmax(logits, valid)
+    o = torch.einsum("bskgt,btkd->bskgd", p, vf)
+    return m.reshape(b, s, h), l.reshape(b, s, h), o.reshape(b, s, h, -1)
+
+
+def _mla_block(q_abs, q_rope, ckv_n, krope, start: int, offset: int,
+               logit_dim: int):
+    """The absorbed MLA decode's partial softmax of every head against a
+    block of the normed latent (B, t, kv_lora) and RoPE key (B, t, dr) at
+    global positions [offset, offset + t), for queries at start + [0, S):
+    (m, l, o_lat) for ``combine_partials``, fp32, o_lat (B, S, H, kv_lora)."""
+    s, t = q_abs.shape[1], ckv_n.shape[1]
+    cf = ckv_n.to(torch.float32)
+    logits = (torch.einsum("bshl,btl->bsht", q_abs.to(torch.float32), cf)
+              + torch.einsum("bshr,btr->bsht", q_rope.to(torch.float32),
+                             krope.to(torch.float32))) * logit_dim ** -0.5
+    dev = cf.device
+    valid = (offset + torch.arange(t, device=dev)
+             <= start + torch.arange(s, device=dev)[:, None, None])
+    m, l, p = _block_softmax(logits, valid)                 # valid (S, 1, t)
+    return m, l, torch.einsum("bsht,btl->bshl", p, cf)
+
+
+def _over_blocks(part, blk):
+    """The attention output (B, S, H, D) from this rank's partials
+    ``part`` = (m, l, o) and those of every rank holding a block of the
+    same cache (``blk``'s groups): one all-gather of O(B·S·H·D) per group,
+    never of the cache."""
+    m, l, o = part
+    packed = torch.cat([m[..., None], l[..., None], o], dim=-1)
+    every = tp.seq_stack(packed, blk)
+    return combine_partials(every[..., 0], every[..., 1], every[..., 2:])
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,6 +336,16 @@ class _Heads:
         its gradient summed over ``model`` under a split."""
         return None if w is None else tp.take(w, partial=self.split)
 
+    def every_head(self, t):
+        """(B, S, local heads, ...) -> every head (an all-gather over
+        ``model`` under a split), for attention over a block of the
+        cache."""
+        return tp.gather_model(t, 2) if self.split else t
+
+    def own_heads(self, t):
+        """(B, S, every head, ...) -> this rank's heads."""
+        return tp.split_in(t, 2) if self.split else t
+
     def select(self, t, whole: bool):
         """(B, T, kv heads, D) -> the kv heads this rank's q heads read;
         ``whole``: ``t`` holds every kv head (else [lo, hi) already)."""
@@ -277,7 +366,10 @@ def gqa_apply(p: GQAAttention, cfg, x, *, positions=None, cache=None,
     they read, projected from the whole (replicated) ``wk`` / ``wv``: only
     those heads without a cache, every head into a cache.  ``wo``'s
     row-parallel product ends in one all-reduce over ``model``; the kernel
-    runs on the local heads at their local GQA ratio."""
+    runs on the local heads at their local GQA ratio.  Against a cache
+    handed as this rank's block along ``kv_seq``, q is gathered to every
+    head, which attends the block; the partial softmaxes are combined
+    across the ranks holding the sequence before ``wo``."""
     b, s, _ = x.shape
     hk, hd = cfg.n_kv_heads, cfg.head_dim
     hs = _Heads(cfg)
@@ -306,16 +398,22 @@ def gqa_apply(p: GQAAttention, cfg, x, *, positions=None, cache=None,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    new_cache = None
+    new_cache = blk = None
     if cache is not None:                  # decode/prefill against cache
         idx = cache["idx"]
+        blk = tp.seq_block(cache["k"].shape[1])
         new_cache = {
-            **_cache_put(cache, "k", k, idx),
-            **_cache_put(cache, "v", v, idx),
+            **_cache_put(cache, "k", k, idx, blk),
+            **_cache_put(cache, "v", v, idx, blk),
             "idx": idx + s,
         }
         k = _cache_get(new_cache, "k", x.dtype)
         v = _cache_get(new_cache, "v", x.dtype)
+    if blk is not None:                    # every head over this block
+        part = _sdpa_block(hs.every_head(q), k, v, hk, positions,
+                           blk.offset)
+        out = hs.own_heads(_over_blocks(part, blk).to(q.dtype))
+        return hs.leave(out.reshape(b, s, hs.hl * hd) @ wo), new_cache
     k, v = hs.select(k, not narrow), hs.select(v, not narrow)
     n_kv = hs.n_kv
 
@@ -357,17 +455,27 @@ def _quantize_rows(t):
     return q, scale
 
 
-def _cache_put(cache, key, val, idx: int):
+def _cache_put(cache, key, val, idx: int, blk=None):
     """Write ``val`` at position idx, in place, quantizing when the cache is
-    int8; returns the written entries."""
+    int8; returns the written entries.  ``blk`` (``tp.seq_block``): the
+    cache is this rank's block, which takes the rows of [idx, idx + S)
+    that fall in it, and none if none do."""
     store = cache[key]
-    s = val.shape[1]
+    lo = idx
+    if blk is not None:
+        lo = max(idx, blk.offset)
+        hi = min(idx + val.shape[1], blk.offset + blk.length)
+        val = val[:, lo - idx:max(hi, lo) - idx]
+        lo -= blk.offset
+    rows = slice(lo, lo + val.shape[1])
     if store.dtype == torch.int8:
-        q, scale = _quantize_rows(val)
-        store[:, idx:idx + s] = q
-        cache[key + "_scale"][:, idx:idx + s] = scale
+        if val.shape[1]:
+            q, scale = _quantize_rows(val)
+            store[:, rows] = q
+            cache[key + "_scale"][:, rows] = scale
         return {key: store, key + "_scale": cache[key + "_scale"]}
-    store[:, idx:idx + s] = val.to(store.dtype)
+    if val.shape[1]:
+        store[:, rows] = val.to(store.dtype)
     return {key: store}
 
 
@@ -466,7 +574,10 @@ def mla_apply(p: MLAAttention, cfg, x, *, positions=None, cache=None,
     latent, its cache and the RoPE key are computed whole on every rank;
     the latents enter the split region, ``wuq`` / ``wuk`` / ``wuv`` and
     ``wo`` give this rank's heads, and ``wo``'s product ends in one
-    all-reduce over ``model`` (both paths)."""
+    all-reduce over ``model`` (both paths).  Against a cache handed as this
+    rank's block along ``kv_seq`` every head attends the block: the
+    absorbed queries gathered over ``model``, or ``wuk`` / ``wuv`` taken
+    whole to up-project the block for every head."""
     if cross_kv is not None:
         raise ValueError("MLA has no cross-attention")
     b, s, _ = x.shape
@@ -488,11 +599,12 @@ def mla_apply(p: MLAAttention, cfg, x, *, positions=None, cache=None,
     krope = rope((x @ wkr)[:, :, None, :], positions,
                  cfg.rope_theta)[:, :, 0, :]            # shared rope key
 
-    new_cache = None
+    new_cache = blk = None
     if cache is not None:
         idx = cache["idx"]
-        new_cache = {**_cache_put(cache, "ckv", ckv, idx),
-                     **_cache_put(cache, "krope", krope, idx),
+        blk = tp.seq_block(cache["ckv"].shape[1])
+        new_cache = {**_cache_put(cache, "ckv", ckv, idx, blk),
+                     **_cache_put(cache, "krope", krope, idx, blk),
                      "idx": idx + s}
         ckv, krope = new_cache["ckv"], new_cache["krope"]
     ckv_n = hs.enter(rms_norm(ckv, kv_norm))
@@ -502,16 +614,34 @@ def mla_apply(p: MLAAttention, cfg, x, *, positions=None, cache=None,
     if cfg.mla_absorb != "never" and cache is not None and s <= 32:
         #   q·k = (W_uk q_nope)·c_kv ;  probs·v = (probs·c_kv)·W_uv
         q_abs = torch.einsum("bshe,lhe->bshl", q_nope, wuk)
+        start = new_cache["idx"] - s
+        if blk is not None:               # every head over this block
+            part = _mla_block(hs.every_head(q_abs), hs.every_head(q_rope),
+                              ckv_n, krope, start, blk.offset, dn + dr)
+            o_lat = hs.own_heads(_over_blocks(part, blk))
+            out = torch.einsum("bshl,lhe->bshe", o_lat.to(x.dtype), wuv)
+            return hs.leave(out.reshape(b, s, hl * dv) @ wo), new_cache
         cf = ckv_n.to(torch.float32)
         logits = (torch.einsum("bshl,btl->bhst", q_abs.to(torch.float32), cf)
                   + torch.einsum("bshr,btr->bhst", q_rope.to(torch.float32),
                                  krope.to(torch.float32))) * (dn + dr) ** -0.5
-        start = new_cache["idx"] - s
         mask = (torch.arange(t, device=x.device)[None, :]
                 <= start + torch.arange(s, device=x.device)[:, None])
         probs = torch.softmax(logits.masked_fill(~mask, NEG_INF), dim=-1)
         o_lat = torch.einsum("bhst,btl->bshl", probs, cf)
         out = torch.einsum("bshl,lhe->bshe", o_lat.to(x.dtype), wuv)
+        return hs.leave(out.reshape(b, s, hl * dv) @ wo), new_cache
+
+    if blk is not None:      # every head's k, v up-projected from the block
+        h = cfg.n_heads
+        k_nope = heads(ckv_n, tp.take(p.wuk), h, dn)
+        v = heads(ckv_n, tp.take(p.wuv), h, dv)
+        k = torch.cat([k_nope, krope[:, :, None, :].expand(b, t, h, dr)],
+                      dim=-1)
+        q = hs.every_head(torch.cat([q_nope, q_rope], dim=-1))
+        part = _sdpa_block(q, k, v, h, positions, blk.offset,
+                           logit_dim=dn + dr)
+        out = hs.own_heads(_over_blocks(part, blk).to(x.dtype))
         return hs.leave(out.reshape(b, s, hl * dv) @ wo), new_cache
 
     k_nope = heads(ckv_n, wuk, hl, dn)                  # (B, T, H, dn)

@@ -268,6 +268,44 @@ def test_full_width_train_cell_fits_a_card():
     assert rec["memory"]["peak_bytes"] < 80e9
 
 
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in torch.utils._pytree.tree_flatten(tree)[0]
+               if isinstance(t, torch.Tensor))
+
+
+def test_split_decode_gathers_no_cache():
+    """yi-6b's smoke decode_32k cell (seq 256, batch 4) on a fake (1, 4)
+    group, ``kv_seq`` over ``model``: each rank attends its block of the
+    cache, so its all-gathers (the queries over heads, the partial
+    softmaxes) move less than a tenth of the whole cache's bytes, and its
+    peak is below the (1, 1) step's."""
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=256,
+                                global_batch=4)
+    cfg = get_smoke_config("yi-6b").replace(max_seq=256, attn_impl="xla")
+    rec = {}
+    for dims in ((1, 1), (1, 4)):
+        with dryrun.fake_group(dims[0] * dims[1]):
+            rec[dims] = dryrun.run_step(cfg, shape, make_local_mesh(
+                *dims, "cpu", fake=True))
+    whole = _tensor_bytes(T.init_cache(cfg, 4, 256, device="meta"))
+    gathered = rec[(1, 4)]["step"]["collectives"]["all-gather"]
+    assert 0 < gathered["count"] and gathered["bytes"] < whole / 10
+    assert rec[(1, 4)]["memory"]["cache_bytes"] == whole // 4
+    assert rec[(1, 4)]["memory"]["peak_bytes"] \
+        < rec[(1, 1)]["memory"]["peak_bytes"]
+
+
+def test_full_width_decode_cell_fits_a_card():
+    """moonshot-v1-16b-a3b x decode_32k at full width on the fake 16x16
+    group (about 20 s here): with the cache split along ``kv_seq`` over
+    ``model`` each rank holds and attends 2048 of the 32768 positions, so
+    its peak of live bytes stays under 10 GB (whole caches: 111.7 GB)."""
+    rec = dryrun.run_cell("moonshot-v1-16b-a3b", "decode_32k", False,
+                          verbose=False)
+    assert rec["memory"]["peak_bytes"] < 10e9
+
+
 def test_inference_passes_take_the_plain_collectives(monkeypatch):
     """Prefill and decode run without autograd, so the MoE dispatch's
     gathers are the plain functional collectives (torch's autograd ones
