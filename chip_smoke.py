@@ -9,6 +9,7 @@
                                            # sharded_train, sharded_rwkv,
                                            # split_decode
     python3 chip_smoke.py --dryrun-only    # device, build, dryrun_arch
+    python3 chip_smoke.py --examples-only  # device, build, examples
 
 Phases, each printing one JSON line:
 
@@ -66,6 +67,22 @@ Phases, each printing one JSON line:
                then python -m repro_torch.launch.serve --serve-maps (async)
                and --no-async as subprocesses: URL from the first line,
                /healthz, the 12 x 2^21 map batch, SIGINT, exit 0
+  examples     the five scripts of examples_torch/ on the card, each main()
+               in process with the reference's default arguments (its
+               printed lines into build/examples/, its wall s on a line of
+               its own): quickstart (a perfect tri2d map; tri_attn on the
+               simt route in fp32 within ATTN_TOL of causal_attention_ref;
+               grid steps 16 -> 10), fractal_compute (the map and BB
+               membership kernels on the six fractals at N = 16384: every
+               row bijective, the BB count the mapped count), derive_and_deploy
+               in process (client 2 derives nothing) and with --url against
+               python -m repro_torch.launch.serve --serve-maps (client 2 all
+               server-side hits; SIGINT, exit 0), serve_lm (yi-6b smoke,
+               tokens generated) and train_lm (the small preset: final loss
+               finite and below the first logged); their map, membership
+               and simt launches into the kernels line; then python
+               examples_torch/quickstart.py as a subprocess: exit 0, its
+               last line the in-process run's
   attention    the tri_attn kernel on both routes and in both grid modes
                against its plain versions (tests/test_kernels_tri_attn.py's
                sweep, GQA): the simt route (fp32; other bf16 shapes) mapped
@@ -335,11 +352,14 @@ ODD_PAD = 1029
 #: map launches at an odd start with n not a multiple of 4
 ODD_START, ODD_N = 12_345, (1 << 20) + 3
 #: tests/test_kernels_tri_attn.py's cases as (B, H, Hk, S, D, block), plus
-#: GQA ones; tolerances are that test's (3e-5 fp32, 3e-2 bf16)
+#: GQA ones and the examples' shapes (examples_torch/train_lm.py's smoke
+#: llama at head_dim 8, quickstart.py's); tolerances are that test's (3e-5
+#: fp32, 3e-2 bf16)
 ATTN_CASES = [(1, 1, 1, 128, 64, 32), (1, 2, 2, 256, 64, 64),
               (2, 1, 1, 128, 128, 32), (1, 1, 1, 256, 32, 128),
               (2, 2, 2, 64, 16, 16), (1, 4, 2, 128, 32, 32),
-              (2, 8, 2, 512, 128, 128)]
+              (2, 8, 2, 512, 128, 128), (8, 6, 2, 128, 8, 128),
+              (1, 4, 4, 512, 64, 128)]
 #: bf16 on the sm90 route: P is rounded to bf16 before P·V (the tensor
 #: cores' input), and the pieces of a row split across CTAs merge in another
 #: order than one CTA's running sum, so the route agrees with the fp32
@@ -475,6 +495,12 @@ FAR = (1 << 31) + 12345
 SERVE_CLIENTS = 4
 SERVE_SWEEP = (1 << 20, 1 << 21)
 SERVE_BOOT_S = 120
+#: the examples phase: examples_torch/, the quickstart's grid steps at S 512,
+#: block 128 (bounding box, mapped) and the paper domains x STAGES cells
+#: that derive_and_deploy's client 2 must find in the server's store
+EXAMPLES = ROOT / "examples_torch"
+QUICKSTART_GRID_STEPS = (16, 10)
+DERIVE_DEPLOY_CELLS = 18
 #: the vlm path: llama-3.2-vision-11b at full width (8 groups of 4 self
 #: layers and one gated cross layer), tokens (1, 4096), stub vision states
 #: (1, 4100, 4096) × 0.1
@@ -747,6 +773,9 @@ class Smoke:
                        for k in self.max_err}
         self.attn_row = {}
         self.sm90_paths = {}           # sm90 launches per main path
+        # launches per main path of the map, membership and simt rows
+        self.paths = {"map_kernel": {}, "membership_kernel": {},
+                      "tri_attn_simt": {}}
         self.wkv_paths = {}            # wkv calls per main path
         self.attn_simt_row = {}
         self.wkv_row = {}
@@ -1035,7 +1064,7 @@ class Smoke:
                           "bytes": d.dim * padded * 4, "call": call,
                           "plain_ms": plain_ms}
         # the map rows of the kernels line: these launches, one per domain
-        self.launches["map_kernel"] = self.K.MAP_LAUNCHES
+        self._add_path("map_kernel", "paper_scale", self.K.MAP_LAUNCHES)
         check(self.K.MAP_LAUNCHES == len(rows),
               f"{self.K.MAP_LAUNCHES} map launches for {len(rows)} domains")
         # BB membership: dense boxes at N = 5e8, full fractal levels
@@ -1071,7 +1100,8 @@ class Smoke:
                         "mapped_call": mcall, "mapped_bytes": d.dim * mpad * 4}
         self.sync()
         main = self.counts()
-        self.launches["membership_kernel"] = main["membership_kernel"]
+        self._add_path("membership_kernel", "paper_scale",
+                       main["membership_kernel"])
         check(main["membership_kernel"] == len(bb),
               f"{main['membership_kernel']} membership launches for "
               f"{len(bb)} boxes")
@@ -1652,23 +1682,25 @@ class Smoke:
             out["metrics_evaluate"] = client.metrics()["evaluate"]
         return out
 
-    def _serve_entry_point(self, extra: list, want: list) -> dict:
+    @contextlib.contextmanager
+    def _serve_maps_process(self, extra: list, work: Path,
+                            backend: str = "mock"):
         """``python -m repro_torch.launch.serve --serve-maps --port 0`` as a
-        user runs it: its URL from the first line, /healthz, the 12 × 2^21
-        map queries as one binary batch, then SIGINT and exit 0."""
+        user runs it, over a fresh store under ``work``: yields its URL
+        (from the first line) and a dict of its command, first line and
+        boot seconds; on leaving the block, SIGINT and exit 0, put into the
+        dict as ``rc``."""
         import os
         import signal
-        import urllib.request
 
-        from repro_torch.serving import RemoteMappingService
-
-        work = ROOT / "build" / "serve" / (
-            "entry_threaded" if "--no-async" in extra else "entry_async")
         work.mkdir(parents=True, exist_ok=True)
         env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
                "REPRO_ARTIFACT_CACHE": str(work / "store")}
         argv = [sys.executable, "-m", "repro_torch.launch.serve",
-                "--serve-maps", "--port", "0", *extra]
+                "--serve-maps", *(["--backend", backend]
+                                  if backend != "mock" else []),
+                "--port", "0", *extra]
+        command = "python -m repro_torch.launch.serve " + " ".join(argv[3:])
         with open(work / "stderr.txt", "w") as err:
             proc = subprocess.Popen(argv, env=env, cwd=ROOT,
                                     stdout=subprocess.PIPE, stderr=err,
@@ -1676,11 +1708,34 @@ class Smoke:
         try:
             t0 = time.perf_counter()
             first = proc.stdout.readline()
-            boot_s = time.perf_counter() - t0
-            check(first.startswith("mapping service on http://"),
-                  f"{' '.join(argv[1:])} printed {first!r} (stderr in "
+            info = {"command": command, "first_line": first.strip(),
+                    "boot_s": time.perf_counter() - t0}
+            check(first.startswith("mapping service on http://")
+                  and f"backend={backend}" in first,
+                  f"{command} printed {first!r} (stderr in "
                   f"{work / 'stderr.txt'})")
-            url = first.split()[3]
+            yield first.split()[3], info
+            proc.send_signal(signal.SIGINT)
+            proc.wait(timeout=SERVE_BOOT_S)
+            info["rc"] = proc.returncode
+            check(proc.returncode == 0,
+                  f"{command} exited {proc.returncode} on SIGINT")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+
+    def _serve_entry_point(self, extra: list, want: list) -> dict:
+        """The ``--serve-maps`` entry point: /healthz, the 12 × 2^21 map
+        queries as one binary batch, then SIGINT and exit 0."""
+        import urllib.request
+
+        from repro_torch.serving import RemoteMappingService
+
+        work = ROOT / "build" / "serve" / (
+            "entry_threaded" if "--no-async" in extra else "entry_async")
+        with self._serve_maps_process(extra, work) as (url, info):
             with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
                 health = json.loads(r.read())
             check(health.get("status") == "ok", f"/healthz said {health}")
@@ -1690,21 +1745,9 @@ class Smoke:
             t0 = time.perf_counter()
             got = client.evaluate_batch(queries)
             eval_s = time.perf_counter() - t0
-            self._same_results(got, want, " ".join(argv[3:]))
+            self._same_results(got, want, info["command"])
             client.close()
-            proc.send_signal(signal.SIGINT)
-            proc.wait(timeout=SERVE_BOOT_S)
-            check(proc.returncode == 0, f"{' '.join(argv[3:])} exited "
-                  f"{proc.returncode} on SIGINT")
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            proc.stdout.close()
-        return {"command": "python -m repro_torch.launch.serve "
-                + " ".join(argv[3:]), "first_line": first.strip(),
-                "boot_s": boot_s, "mode": health.get("mode"),
-                "evaluate_s": eval_s, "rc": proc.returncode}
+        return {**info, "mode": health.get("mode"), "evaluate_s": eval_s}
 
     def sharded_sweep(self) -> dict:
         """The sweep's λ-range split over every card (two shards on the one
@@ -1807,7 +1850,7 @@ class Smoke:
         counts = self.counts()
         for k in ("map_kernel", "membership_kernel"):
             check(counts[k] > 0, f"the serve phase never launched {k}")
-            self.launches[k] += counts[k]
+            self._add_path(k, "serve", counts[k])
         check(all(n == 0 for k, n in counts.items()
                   if k not in ("map_kernel", "membership_kernel")),
               f"other kernels launched in the serve phase: {counts}")
@@ -1824,6 +1867,189 @@ class Smoke:
                              "frame_bytes": frame_bytes},
               "frontends": frontends, "sharded_sweep": sharded,
               "entry_point": entry,
+              "main_path_launches": counts,
+              "phase_s": time.perf_counter() - t_phase})
+
+    # -- the examples ---------------------------------------------------------
+    def _run_example(self, name: str, argv: list, label: str) -> tuple:
+        """``examples_torch/<name>.py``'s ``main(argv)`` in process, its
+        printed lines into build/examples/<label>.txt: its result and a row
+        of its wall s and kernel launches, printed on a line of its own."""
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            f"examples_torch_{name}", EXAMPLES / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        self.sync()
+        n0 = self.counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+        self.sync()
+        wall_s = time.perf_counter() - t0
+        (ROOT / "build" / "examples" / f"{label}.txt").write_text(
+            buf.getvalue())
+        n1 = self.counts()
+        row = {"example": label, "argv": argv, "wall_s": wall_s,
+               "launches": {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}}
+        emit(row)
+        return out, row
+
+    def _quickstart_subprocess(self, work: Path, want: dict) -> dict:
+        """``python examples_torch/quickstart.py`` as a user types it: exit
+        0, its kernel error within the simt tolerance, and its last line,
+        the deployment line, the in-process run's."""
+        import os
+
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "REPRO_ARTIFACT_CACHE": str(work / "store_subprocess")}
+        command = ["python", "examples_torch/quickstart.py"]
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, *command[1:]], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        wall_s = time.perf_counter() - t0
+        (work / "quickstart_subprocess.txt").write_text(out.stdout
+                                                        + out.stderr)
+        check(out.returncode == 0, f"{' '.join(command)} exited "
+              f"{out.returncode} (output in {work}/quickstart_subprocess.txt)")
+        lines = out.stdout.strip().splitlines()
+        err = float([ln for ln in lines if ln.startswith("kernel err vs")][-1]
+                    .rsplit(":", 1)[1])
+        check(err < ATTN_TOL["float32"], f"{' '.join(command)}: kernel err "
+              f"{err} >= {ATTN_TOL['float32']}")
+        m = re.search(r"([0-9.]+)x faster, ([0-9.]+)x less energy, amortized"
+                      r" after ([0-9.]+) runs", lines[-1])
+        check(m is not None and lines[-1] == want["lines"][-1],
+              f"{' '.join(command)}: last line {lines[-1]!r}, in process "
+              f"{want['lines'][-1]!r}")
+        emit({"example": "quickstart (subprocess)", "wall_s": wall_s})
+        return {"command": " ".join(command), "rc": out.returncode,
+                "wall_s": wall_s, "kernel_err": err,
+                "a100_model": dict(zip(
+                    ("speedup", "energy_reduction", "runs_to_break_even"),
+                    map(float, m.groups())))}
+
+    def examples(self) -> None:
+        """The five examples of examples_torch/ on the card as a user calls
+        them, their kernels counted as a main path of their own."""
+        import os
+        import shutil
+
+        import numpy as np
+
+        t_phase = time.perf_counter()
+        work = ROOT / "build" / "examples"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        old_cache = os.environ.get("REPRO_ARTIFACT_CACHE")
+        os.environ["REPRO_ARTIFACT_CACHE"] = str(work / "store")
+        rows = []
+        try:
+            self.reset_counts()
+            qs, row = self._run_example("quickstart", [], "quickstart")
+            rows.append(row)
+            check(qs["perfect"], "quickstart: the tri2d map is not perfect")
+            check(qs["route"] == "simt", f"quickstart took {qs['route']}")
+            check(qs["err"] < ATTN_TOL["float32"], f"quickstart: kernel err "
+                  f"{qs['err']} >= {ATTN_TOL['float32']}")
+            check((qs["bb_steps"], qs["mapped_steps"])
+                  == QUICKSTART_GRID_STEPS, "quickstart: grid steps "
+                  f"{qs['bb_steps']} -> {qs['mapped_steps']}")
+            fc, row = self._run_example("fractal_compute", [],
+                                        "fractal_compute")
+            rows.append(row)
+            for name, r in fc["rows"].items():
+                coords = r["coords"]
+                check(len(np.unique(coords, axis=0)) == len(coords)
+                      and bool(self.DOMAINS[name].contains(coords).all()),
+                      f"fractal_compute: {name}'s mapped points are not "
+                      f"bijective")
+                check(int(r["mask"].sum()) == r["mapped_count"],
+                      f"fractal_compute: {name}'s BB count "
+                      f"{int(r['mask'].sum())} is not the mapped count "
+                      f"{r['mapped_count']}")
+            dd, row = self._run_example("derive_and_deploy", [],
+                                        "derive_and_deploy")
+            rows.append(row)
+            check(dd["client2"]["derivations"] == 0,
+                  f"derive_and_deploy: client 2 derived "
+                  f"{dd['client2']['derivations']} cells")
+            with self._serve_maps_process([], work / "server") as (url, srv):
+                du, row = self._run_example(
+                    "derive_and_deploy", ["--url", url],
+                    "derive_and_deploy_url")
+            rows.append(row)
+            check(du["second_all_hits"] and du["client2_server_hits"]
+                  == DERIVE_DEPLOY_CELLS,
+                  f"derive_and_deploy --url: client 2 got "
+                  f"{du['client2_server_hits']} server-side hits")
+            # the server validates more points (--n-validate), so only the
+            # rows of undeployable cells may read other percentages
+            check(all(x == y for x, y in zip(dd["table"], du["table"])
+                      if not (x.endswith("--") or y.endswith("--"))),
+                  "derive_and_deploy: the deployable rows differ between "
+                  "in process and --url")
+            sl, row = self._run_example("serve_lm", [], "serve_lm")
+            rows.append(row)
+            check(sl["steps"] > 0 and sl["seqs"] == 4,
+                  f"serve_lm generated {sl['steps']} steps x {sl['seqs']}")
+            tl, row = self._run_example(
+                "train_lm", ["--ckpt-dir", str(work / "train_ckpt")],
+                "train_lm")
+            rows.append(row)
+            first = tl["logged_losses"][0] if tl["logged_losses"] else None
+            check(math.isfinite(tl["final"]["loss"]) and first is not None
+                  and tl["final"]["loss"] < first,
+                  f"train_lm: final loss {tl['final']['loss']}, first "
+                  f"logged {first}")
+            self.sync()
+            counts = self.counts()
+        finally:
+            if old_cache is None:
+                os.environ.pop("REPRO_ARTIFACT_CACHE", None)
+            else:
+                os.environ["REPRO_ARTIFACT_CACHE"] = old_cache
+        simt = counts["tri_attn"] - counts["tri_attn_sm90"]
+        for k, n in (("map_kernel", counts["map_kernel"]),
+                     ("membership_kernel", counts["membership_kernel"]),
+                     ("tri_attn_simt", simt)):
+            check(n > 0, f"the examples never launched {k}")
+            self._add_path(k, "examples", n)
+        if counts["tri_attn_sm90"]:
+            self._add_sm90("examples", counts)
+        sub = self._quickstart_subprocess(work, qs)
+        shutil.rmtree(work / "train_ckpt", ignore_errors=True)
+        emit({"phase": "examples", "card": self.card,
+              "examples": rows, "quickstart_subprocess": sub,
+              "quickstart": {"route": qs["route"], "kernel_err": qs["err"],
+                             "grid_steps_bb_mapped": [qs["bb_steps"],
+                                                      qs["mapped_steps"]],
+                             "a100_model_amortization": {
+                                 "speedup": qs["amortization"].speedup,
+                                 "energy_reduction":
+                                     qs["amortization"].energy_reduction,
+                                 "runs_to_break_even":
+                                     qs["amortization"].runs_to_break_even}},
+              "fractal_compute": {
+                  name: {k: r[k] for k in ("bb_cells", "bb_count",
+                                           "mapped_count", "via",
+                                           "waste_fraction")}
+                  for name, r in fc["rows"].items()},
+              "derive_and_deploy": {
+                  "in_process": {"client1": dd["client1"],
+                                 "client2": dd["client2"]},
+                  "url": {"server": srv,
+                          "client1_server_hits": du["client1_server_hits"],
+                          "client2_server_hits": du["client2_server_hits"]},
+                  "tables_equal": du["table"] == dd["table"]},
+              "serve_lm": {"argv": sl["argv"], "steps": sl["steps"],
+                           "lines": sl["lines"]},
+              "train_lm": {"argv": tl["argv"],
+                           "logged_losses": tl["logged_losses"],
+                           "final": tl["final"]},
               "main_path_launches": counts,
               "phase_s": time.perf_counter() - t_phase})
 
@@ -2285,10 +2511,9 @@ class Smoke:
                       "sm90_launches_forward": 0,
                       "pair_launches_per_call": simt_per_call}
         counts = self.counts()
-        self.launches["tri_attn_sm90"] = counts["tri_attn_sm90"]
-        self.sm90_paths["lm_forward"] = counts["tri_attn_sm90"]
-        self.launches["tri_attn_simt"] = (counts["tri_attn"]
-                                          - counts["tri_attn_sm90"])
+        self._add_sm90("lm_forward", counts)
+        self._add_path("tri_attn_simt", "lm_forward",
+                       counts["tri_attn"] - counts["tri_attn_sm90"])
         x = logits["xla"]
         scale = float(x.abs().max())
         # every kernel forward against xla, and mapped against BB: the sm90
@@ -3634,6 +3859,11 @@ class Smoke:
              "--max-new", "32"])})
         self._free()
 
+    def _add_path(self, kernel: str, path: str, n: int) -> None:
+        """A main path's launches of ``kernel`` into the kernels line."""
+        self.launches[kernel] = self.launches.get(kernel, 0) + n
+        self.paths[kernel][path] = n
+
     def _add_sm90(self, path: str, counts: dict) -> None:
         """A main path's sm90 tri_attn launches into the kernels line."""
         self.launches["tri_attn_sm90"] = self.launches.get(
@@ -3788,8 +4018,6 @@ class Smoke:
         SERVE_CLIENTS concurrent clients at one model and stage, every
         record deployable, ``key`` queries at MAX_POINTS bit-identical to
         the domain queries, /metrics' batching section, SIGINT and exit 0."""
-        import os
-        import signal
         import threading
 
         from repro_torch.core.backends import MODEL_SPECS
@@ -3798,25 +4026,8 @@ class Smoke:
 
         mode = "threaded" if "--no-async" in extra else "async"
         work = ROOT / "build" / "engine_serve" / mode
-        work.mkdir(parents=True, exist_ok=True)
-        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-               "REPRO_ARTIFACT_CACHE": str(work / "store")}
-        argv = [sys.executable, "-m", "repro_torch.launch.serve",
-                "--serve-maps", "--backend", "engine", "--port", "0", *extra]
-        command = "python -m repro_torch.launch.serve " + " ".join(argv[3:])
-        with open(work / "stderr.txt", "w") as err:
-            proc = subprocess.Popen(argv, env=env, cwd=ROOT,
-                                    stdout=subprocess.PIPE, stderr=err,
-                                    text=True)
-        try:
-            t0 = time.perf_counter()
-            first = proc.stdout.readline()
-            boot_s = time.perf_counter() - t0
-            check(first.startswith("mapping service on http://")
-                  and "backend=engine" in first,
-                  f"{command} printed {first!r} (stderr in "
-                  f"{work / 'stderr.txt'})")
-            url = first.split()[3]
+        with self._serve_maps_process(extra, work, "engine") as (url, info):
+            command = info["command"]
             derived, errors = {}, []
             gate = threading.Barrier(SERVE_CLIENTS)
 
@@ -3864,15 +4075,6 @@ class Smoke:
                       f"{command}: key query for {d} differs from the "
                       f"domain query")
             client.close()
-            proc.send_signal(signal.SIGINT)
-            proc.wait(timeout=SERVE_BOOT_S)
-            check(proc.returncode == 0,
-                  f"{command} exited {proc.returncode} on SIGINT")
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            proc.stdout.close()
         power_w = MODEL_SPECS[ENGINE_MODEL]["power_w"]
         per_derive = {
             d: {"wall_s": wall, "inference_s": r.response.seconds,
@@ -3882,13 +4084,12 @@ class Smoke:
                 "joules_model_specs_power": r.response.joules,
                 "cache_key": r.cache_key}
             for d, (r, wall) in sorted(derived.items())}
-        return {"command": command, "first_line": first.strip(),
-                "boot_s": boot_s, "derive_s": derive_s,
+        return {**info, "derive_s": derive_s,
                 "per_derive": per_derive,
                 "model_specs_power_w": power_w, "batching": stats,
                 "service": metrics["service"], "key_queries_s": key_s,
                 "key_points": MAX_POINTS * len(domains),
-                "evaluate": metrics.get("evaluate"), "rc": proc.returncode}
+                "evaluate": metrics.get("evaluate")}
 
     def engine_serve(self) -> None:
         """EngineBackend on the card with the yi-6b smoke config, as the
@@ -5836,10 +6037,12 @@ class Smoke:
     def kernels_line(self) -> None:
         """One row per kernel.  Map rows: launches are paper_scale's main
         path (one mapped launch per domain at N = 5e8, one membership launch
-        per BB box) and the serve phase's (every launch its frontends and
-        its split sweep made); ms, plain_ms and bound_ms are per launch over
-        paper_scale's calls.  tri_attn has a row per route: sm90 (the LM path, timed
-        at the LM shape) and simt (the block-64 forward, timed there)."""
+        per BB box), the serve phase's (every launch its frontends and its
+        split sweep made) and the examples'; ms, plain_ms and bound_ms are
+        per launch over paper_scale's calls.  tri_attn has a row per route:
+        sm90 (the LM path, timed at the LM shape) and simt (the block-64
+        forward and the examples, timed at the block-64 forward's shape).
+        ``launches_by_path`` splits each row's launches by main path."""
         src = "src/repro_torch/kernels/domain_map/csrc/"
         replaces = {"map_kernel": "src/repro/kernels/domain_map/kernel.py:53",
                     "membership_kernel":
@@ -5852,7 +6055,7 @@ class Smoke:
              "ms": t["ms"] / t["n"], "plain_ms": t["plain_ms"] / t["n"],
              "bound_ms": t["bytes"] / t["n"] / HBM_BYTES_PER_S * 1e3,
              "bound_by": "bytes", "library_ms": None,
-             "per_launch_over": t["n"]}
+             "per_launch_over": t["n"], "launches_by_path": self.paths[name]}
             for name, t in self.totals.items()]
         attn = "src/repro_torch/kernels/tri_attn/csrc/"
         rows.append({
@@ -5866,6 +6069,7 @@ class Smoke:
             "source": f"{attn}tri_attn.cu",
             "replaces": "src/repro/kernels/tri_attn/kernel.py:54",
             "launches": self.launches["tri_attn_simt"],
+            "launches_by_path": self.paths["tri_attn_simt"],
             **self.attn_simt_row})
         rows.append({
             "name": "wkv", "route": "cuda",
@@ -5910,11 +6114,15 @@ def main() -> int:
     if "--dryrun-only" in sys.argv[1:]:
         smoke.dryrun_arch()
         return 0
+    if "--examples-only" in sys.argv[1:]:
+        smoke.examples()
+        return 0
     smoke.kernels()
     smoke.paper_scale()
     smoke.evaluate()
     smoke.derive()
     smoke.serve()
+    smoke.examples()
     smoke.attention()
     smoke.lm_forward()
     smoke.xla_mapped()

@@ -12,8 +12,9 @@
 //     contiguous range of the paper's lambda grid with the row state on
 //     chip; see the note there.
 //   * simt (this file): every other shape -- fp32 inputs, and bf16 with
-//     another block or head_dim (16, 32, 64 or 128; blocks of 16, 32, 64 or
-//     128 rows).  It is the first version, described below, kept unchanged.
+//     another block or head_dim (8, 16, 32, 64 or 128; blocks of 16, 32, 64
+//     or 128 rows).  It is the first version, described below; head_dim 8
+//     (the smoke configs') leaves half of each p v row's 16 lanes idle.
 //
 // The simt route.  The (q block i, k block j) pairs with j <= i are the
 // paper's 2D triangular domain.  On the TPU the grid ran in order and carried
@@ -111,7 +112,9 @@ __device__ __forceinline__ void ta_pair(const TaArgs& a, int bh_local,
   constexpr int KC = BLK < TA_KC ? BLK : TA_KC;
   constexpr int RM = BLK / 16;   // q rows per thread
   constexpr int CN = KC / 16;    // k rows per thread per sub-tile
-  constexpr int DN = D / 16;     // output columns per thread
+  constexpr int DN = (D + 15) / 16;  // output columns per thread
+  // below 16 columns, lanes tx >= D hold no column: they read and write
+  // nothing (the test is true at compile time for D a multiple of 16)
   constexpr int QP = D + 1;      // padded row pitches (no bank conflicts)
   constexpr int SP = BLK + 1;
   extern __shared__ float smem[];
@@ -212,7 +215,9 @@ __device__ __forceinline__ void ta_pair(const TaArgs& a, int bh_local,
 #pragma unroll
       for (int x = 0; x < RM; ++x) pa[x] = sS[(ty + 16 * x) * SP + c0 + c];
 #pragma unroll
-      for (int y = 0; y < DN; ++y) vb[y] = sKV[c * QP + tx + 16 * y];
+      for (int y = 0; y < DN; ++y)
+        vb[y] = (D % 16 == 0 || tx + 16 * y < D) ? sKV[c * QP + tx + 16 * y]
+                                                 : 0.f;
 #pragma unroll
       for (int x = 0; x < RM; ++x)
 #pragma unroll
@@ -224,7 +229,8 @@ __device__ __forceinline__ void ta_pair(const TaArgs& a, int bh_local,
   for (int x = 0; x < RM; ++x)
 #pragma unroll
     for (int y = 0; y < DN; ++y)
-      ws[(ty + 16 * x) * D + tx + 16 * y] = o[x][y];
+      if (D % 16 == 0 || tx + 16 * y < D)
+        ws[(ty + 16 * x) * D + tx + 16 * y] = o[x][y];
 }
 
 // grid (T(nb), nbh): block lambda is pair g(lambda)
@@ -301,6 +307,7 @@ template <typename T, int BLK>
 static int ta_dispatch_d(const TaArgs& a, int head_dim, int mode,
                          cudaStream_t st) {
   switch (head_dim) {
+    case 8: return ta_launch<T, BLK, 8>(a, mode, st);
     case 16: return ta_launch<T, BLK, 16>(a, mode, st);
     case 32: return ta_launch<T, BLK, 32>(a, mode, st);
     case 64: return ta_launch<T, BLK, 64>(a, mode, st);

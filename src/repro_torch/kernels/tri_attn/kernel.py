@@ -61,7 +61,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 MODES = {"mapped": 0, "bounding_box": 1}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCKS = (16, 32, 64, 128)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 #: the most fp32 workspace (partials) one pair launch may use: the wrapper
 #: splits B·H into launches that stay under it.  The workspace grows as
 #: S²·D/block — 1.1 GB for (B, H, S, D) = (1, 32, 4096, 128) at block 128.

@@ -1,6 +1,6 @@
-"""The port stands alone: importing ``repro_torch``, every module in it and
-``chip_smoke.py`` loads neither JAX nor any module of the JAX package
-``repro``, and builds no kernel."""
+"""The port stands alone: importing ``repro_torch``, every module in it,
+``chip_smoke.py`` and every script of ``examples_torch/`` loads neither JAX
+nor any module of the JAX package ``repro``, and builds no kernel."""
 import json
 import os
 import subprocess
@@ -11,7 +11,7 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 PROBE = textwrap.dedent("""
-    import importlib, importlib.util, json, pkgutil, sys
+    import importlib, importlib.util, json, pathlib, pkgutil, sys
     import repro_torch
     names = ["repro_torch"]
     for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
@@ -30,6 +30,16 @@ PROBE = textwrap.dedent("""
     spec = importlib.util.spec_from_file_location("chip_smoke", CHIP_SMOKE)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     assert not build.LOADED, "importing built a kernel"
+    examples = sorted(pathlib.Path(EXAMPLES).glob("*.py"))
+    for path in examples:
+        spec = importlib.util.spec_from_file_location(
+            "examples_torch_" + path.stem, path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        names.append("examples_torch/" + path.name)
+    assert not build.LOADED, "importing an example built a kernel"
+    from repro_torch.kernels.domain_map import kernel as map_kernel
+    assert (map_kernel.MAP_LAUNCHES, map_kernel.MEMBERSHIP_LAUNCHES,
+            attn_kernel.ATTN_LAUNCHES) == (0, 0, 0)
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "repro" or m.startswith("repro."))
@@ -42,6 +52,8 @@ def test_port_imports_neither_jax_nor_repro():
     probe = PROBE.replace(
         "CHIP_SMOKE", repr(os.path.abspath(os.path.join(ROOT,
                                                         "chip_smoke.py"))))
+    probe = probe.replace(
+        "EXAMPLES", repr(os.path.abspath(os.path.join(ROOT, "examples_torch"))))
     out = subprocess.run([sys.executable, "-c", probe], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -88,3 +100,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.launch.mesh", "repro_torch.launch.roofline",
                  "repro_torch.launch.hlo_analysis"):
         assert name in seen["modules"]
+    # the examples (queue 1 item 11), each imported and not run
+    assert [m for m in seen["modules"] if m.startswith("examples_torch/")] \
+        == [f"examples_torch/{name}.py" for name in (
+            "derive_and_deploy", "fractal_compute", "quickstart", "serve_lm",
+            "train_lm")]
