@@ -85,24 +85,37 @@ Phases, each printing one JSON line:
                last line the in-process run's
   attention    the tri_attn kernel on both routes and in both grid modes
                against its plain versions (tests/test_kernels_tri_attn.py's
-               sweep, GQA): the simt route (fp32; other bf16 shapes) mapped
-               bit-identical to BB, also at the LM shape in fp32, and its
-               B·H split bit-identical to one launch; the sm90 route (bf16,
-               block 128, head_dim 64/128) at the LM shape and a GQA D 64
-               case against causal_attention_ref (late rows too) and
-               attention_stream_plain, at several cells per CTA, each mode
-               bitwise equal over two runs, mapped within bf16 tolerance of
-               BB; the device-side λ → (i, j) map exact for every
-               λ < T(65535); a gradient check; at the LM path's shape each
-               route's median time beside the bound, the plain version's
-               and scaled_dot_product_attention's (the yardstick only), and
-               the sm90 kernel's registers and spills
+               sweep, GQA): the simt route (fp32; other bf16 shapes; strips
+               of G key blocks) mapped bit-identical to BB, also in fp32
+               at the LM shape at block 128 and at (1, 32, 4 kv, 2048, 128)
+               at block 64 with G > 1 (every row within 3e-5 of
+               causal_attention_ref and of attention_pairs_plain at the
+               card's G), in bf16 at the LM shape at block 64 (G 16; late
+               rows against causal_attention_ref, every row against
+               attention_pairs_plain, as sm90's), and its B·H split
+               bit-identical to one launch; the
+               sm90 route (bf16, block 128, head_dim 64/128) at the LM shape
+               and a GQA D 64 case against causal_attention_ref (late rows
+               too) and attention_stream_plain, at several cells per CTA,
+               each mode bitwise equal over two runs, mapped within bf16
+               tolerance of BB; the device-side staircase map λ -> (i, g)
+               exact against int64 torch for every λ < T(65535) at G = 1,
+               every λ < C(65535, G) at G = 8 and 16, and in windows
+               across 2^31 and at 2^33 for G = 1, 2, 3, 8, 16; a gradient
+               check; at the LM
+               path's shape each route's median time beside the bound, the
+               plain version's and scaled_dot_product_attention's (the
+               yardstick only): sm90 in bf16, simt in bf16 at block 64 and
+               in fp32 at block 128 (device ms, calls back to back; its bound
+               three TF32 products a flop pair, fp32 SDPA beside it), each
+               simt case also at G = 1, 4, 8, 16, 32 (held to ATTN_TOL);
+               both routes' registers and spills
   lm_forward   yi-6b at full width (bf16, random weights from a seeded
                torch.Generator), tokens (1, 4096): forward and lm_loss with
                attn_impl pallas_mapped, pallas_bb and xla, and a forward at
-               attn_block 64 (the simt route); every kernel forward's logits
-               held against xla, mapped against BB; 32 sm90 launches per
-               block-128 kernel forward
+               attn_block 64 (the simt route, one strip launch a layer);
+               every kernel forward's logits held against xla, mapped
+               against BB; 32 sm90 launches per block-128 kernel forward
   xla_mapped   the same weights and tokens under attn_impl="xla_mapped"
                (the mapped block-pair attention in plain torch): forward
                and lm_loss against xla and pallas_mapped with lm_forward's
@@ -328,10 +341,11 @@ sys.path.insert(0, str(ROOT / "src"))
 #: sheet, held in the port's ``core/energy.py``): a kernel's bound is the
 #: larger of its bytes (each input read once, each output written once) at
 #: the one and its operations at the other; the fp32 rate outside the tensor
-#: cores is for the wkv kernel's fp32 work on the LM path
+#: cores is for the wkv kernel's fp32 work on the LM path, the TF32 rate for
+#: tri_attn's fp32 products (three TF32 products each)
 from repro_torch.core.energy import (  # noqa: E402
     H100_BF16_FLOPS as BF16_FLOP_PER_S, H100_FP32_FLOPS as FP32_FLOP_PER_S,
-    H100_HBM_BW as HBM_BYTES_PER_S,
+    H100_HBM_BW as HBM_BYTES_PER_S, H100_TF32_FLOPS as TF32_FLOP_PER_S,
 )
 N_PAPER = 500_000_000          # benchmarks/block_dense.py:23
 CHUNK = 1 << 26                # λ per plain-version chunk (int64 temps fit)
@@ -372,13 +386,15 @@ ATTN_MAIN = (1, 32, 4, 4096, 128, 128)
 #: max |ref|.  Both compute in fp32 and round o to bf16, so they differ by
 #: at most one bf16 ulp, 2^-7 of the row's max (7.8e-3) at worst
 LATE_ROW_RTOL = 1e-2
-#: the sm90 route against attention_stream_plain, every row: max |Δ| over
-#: the row's max |o|.  Both round P to bf16 and o to bf16 from fp32 sums
-#: taken in other orders, so an element differs by about one bf16 ulp,
-#: 2^-7 of the row's max at worst; the gate allows two.  A piece dropped or
-#: merged twice moves a row by about its share of the keys (1/8 of a row
-#: of 8 pieces at ATTN_U_CASE), several times this
-SM90_PLAIN_ROW_RTOL = 2 * 2.0 ** -7
+#: a bf16 route against its plain version at the same cells, every row:
+#: max |Δ| over the row's max |o|.  sm90 and attention_stream_plain both
+#: round P to bf16, simt and attention_pairs_plain keep it in fp32; each
+#: pair rounds o to bf16 from fp32 sums taken in other orders, so an
+#: element differs by about one bf16 ulp, 2^-7 of the row's max at worst;
+#: the gate allows two.  A piece or strip dropped, merged twice or
+#: rescaled wrongly moves a row by about its share of the keys (1/8 of a
+#: row of 8 pieces at ATTN_U_CASE), several times this
+PLAIN_ROW_RTOL = 2 * 2.0 ** -7
 #: the sm90 route at head_dim 64 with GQA (8 q heads per kv head)
 ATTN_GQA64 = (2, 16, 2, 2048, 64, 128)
 #: the sm90 route held against attention_stream_plain at the same cells per
@@ -387,11 +403,17 @@ ATTN_GQA64 = (2, 16, 2, 2048, 64, 128)
 #: takes more than one (b, h))
 ATTN_U_CASE = (1, 4, 2, 1024, 128, 128)
 ATTN_U_VALUES = (1, 3, 73)
-#: the simt route in bf16 at yi-6b's heads: the B·H split check (the LM
-#: shape at block 128 now takes the sm90 route) and the block-64 forward
+#: the simt route at yi-6b's heads, S 2048, block 64: in bf16 the B·H
+#: split check (the LM shape at block 128 takes the sm90 route), in fp32
+#: a case where default_strip gives G > 1 at four warps a cell
 ATTN_SPLIT_BF16 = (1, 32, 4, 2048, 128, 64)
 LM_SIMT_BLOCK = 64
+#: strip lengths G at which the simt route's two ATTN_MAIN cases (bf16
+#: block 64, fp32 block 128) are held and timed beside the chooser's G
+SIMT_STRIP_SWEEP = (1, 4, 8, 16, 32)
 NB_MAP = 65535                 # the λ map is held exact for λ < T(NB_MAP)
+#: the staircase map's strip lengths held on the card past 2^31 cells
+MAP_STRIPS = (1, 2, 3, 8, 16)
 LM_ARCH = "yi-6b"
 LM_SEQ = 4096
 LM_LAUNCHES = 32               # one tri_attn launch per layer per forward
@@ -2067,45 +2089,139 @@ class Smoke:
     @staticmethod
     def _attn_bound_ms(b, h, hk, s, d, itemsize) -> tuple[float, dict]:
         """The least time for causal attention: its products (4·D flop for
-        each of the S(S+1)/2 (query, key) pairs per (b, h)) at the bf16 rate,
-        against q, k, v read once and o written once at the memory rate."""
+        each of the S(S+1)/2 (query, key) pairs per (b, h)) against q, k, v
+        read once and o written once at the memory rate.  bf16 products run
+        at the bf16 rate; fp32 (itemsize 4) ones as three TF32 products
+        (3xTF32, the least that keeps fp32 accuracy on the tensor cores) at
+        the TF32 rate, with ``fp32_cores_ms`` the same flop at the CUDA
+        cores' fp32 rate beside it."""
         flop = b * h * 4 * d * (s * (s + 1) // 2)
         nbytes = (2 * b * h + 2 * b * hk) * s * d * itemsize
-        t_ops = flop / BF16_FLOP_PER_S * 1e3
+        extra = {}
+        if itemsize == 4:
+            t_ops = 3 * flop / TF32_FLOP_PER_S * 1e3
+            extra["fp32_cores_ms"] = flop / FP32_FLOP_PER_S * 1e3
+        else:
+            t_ops = flop / BF16_FLOP_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         return max(t_ops, t_bytes), {
             "flop": flop, "bytes": nbytes, "ops_ms": t_ops,
-            "bytes_ms": t_bytes,
+            "bytes_ms": t_bytes, **extra,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
-    def _attn_main_fp32(self, gen, causal_attention, causal_attention_ref):
-        """The LM path's shape in fp32, where the kernel and both plain
-        versions agree to 3e-5 on every row: the 32-partial combines of the
-        deep rows are held as tightly as the sweep's short ones."""
+    def _attn_fp32_held(self, q, k, v, blk, what, causal_attention,
+                        causal_attention_ref):
+        """The simt route in fp32 on one input: mapped ≡ BB bit for bit, and
+        every element within 3e-5 of causal_attention_ref and of
+        attention_pairs_plain at the card's G.  Returns the errors (also
+        over rows S/2 and on) and the oracle's output."""
         torch, AK = self.torch, self.AK
-        b, h, hk, s, d, blk = ATTN_MAIN
-        q, k, v = self._attn_inputs(b, h, hk, s, d, torch.float32, gen)
+        h, s, d = q.shape[1], q.shape[2], q.shape[3]
+        check(AK.attention_route(q.dtype, blk, d) == "simt",
+              f"{what}: not a simt shape")
         got = {mode: causal_attention(q, k, v, blk, blk, mode)
                for mode in ("mapped", "bounding_box")}
         self.sync()
         check(torch.equal(got["mapped"], got["bounding_box"]),
-              "main shape fp32: mapped and BB outputs differ")
+              f"{what}: mapped and BB outputs differ")
+        g = h // k.shape[1]
+        ref = causal_attention_ref(q, k.repeat_interleave(g, 1),
+                                   v.repeat_interleave(g, 1))
         errs = {}
-        for what, fn in (
-                ("causal_attention_ref", lambda: causal_attention_ref(
-                    q, k.repeat_interleave(h // hk, 1),
-                    v.repeat_interleave(h // hk, 1))),
+        for name, fn in (
+                ("causal_attention_ref", lambda: ref),
                 ("attention_pairs_plain",
-                 lambda: AK.attention_pairs_plain(q, k, v, blk))):
-            want = fn()
-            diff = (got["mapped"] - want).abs()
-            errs[what] = float(diff.max())
-            errs[what + "_rows_ge_half"] = float(diff[:, :, s // 2:].max())
-            check(errs[what] < ATTN_TOL["float32"],
-                  f"main shape fp32: kernel vs {what} max abs err "
-                  f"{errs[what]} >= {ATTN_TOL['float32']}")
-            del want, diff
-        return errs
+                 lambda: AK.attention_plain(q, k, v, blk, "mapped"))):
+            diff = (got["mapped"] - fn()).abs()
+            errs[name] = float(diff.max())
+            errs[name + "_rows_ge_half"] = float(diff[:, :, s // 2:].max())
+            check(errs[name] < ATTN_TOL["float32"],
+                  f"{what}: kernel vs {name} max abs err {errs[name]} >= "
+                  f"{ATTN_TOL['float32']}")
+            del diff
+        return errs, ref
+
+    def _attn_strip_sweep(self, q, k, v, blk, want, what) -> dict:
+        """The simt route's mapped call at each strip length G of
+        SIMT_STRIP_SWEEP up to nb (the route's private launcher): held
+        within ATTN_TOL of ``want`` and timed in device ms, beside
+        default_strip's G."""
+        AK = self.AK
+        tol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+        out = {}
+        for g in SIMT_STRIP_SWEEP:
+            if g > q.shape[2] // blk:
+                continue
+            fn = (lambda g=g: AK._launch_simt(q, k, v, blk, "mapped", g))
+            err = float((fn().float() - want).abs().max())
+            check(err < tol, f"{what} at G {g}: vs causal_attention_ref "
+                  f"{err} >= {tol}")
+            out[g] = self.device_ms(fn, n=5)
+        return out
+
+    def _attn_fp32_strips(self, gen, causal_attention,
+                          causal_attention_ref) -> dict:
+        """fp32 at block 64 (four warps a cell, K and V split into the
+        shared hi/lo buffers) at ATTN_SPLIT_BF16's shape, where the chooser
+        gives G > 1: strips of several tiles refill the cp.async ring and
+        the combine merges several strips a row, held by
+        ``_attn_fp32_held``; its device ms."""
+        torch, AK = self.torch, self.AK
+        b, h, hk, s, d, blk = ATTN_SPLIT_BF16
+        q, k, v = self._attn_inputs(b, h, hk, s, d, torch.float32, gen)
+        strip = AK.default_strip(b * h, s // blk, AK.sm_count(q.device))
+        check(strip > 1, f"fp32 {ATTN_SPLIT_BF16}: G {strip}, want > 1")
+        errs, _ = self._attn_fp32_held(q, k, v, blk,
+                                       f"fp32 {ATTN_SPLIT_BF16}",
+                                       causal_attention, causal_attention_ref)
+        return {"shape": [b, h, hk, s, d, blk], "dtype": "float32",
+                "strip": strip, **errs,
+                "device_ms": self.device_ms(lambda: causal_attention(
+                    q, k, v, blk, blk, "mapped"), n=10)}
+
+    def _attn_main_fp32(self, gen, causal_attention, causal_attention_ref):
+        """The LM path's shape in fp32 at block 128 (the simt route, 3xTF32
+        products), held by ``_attn_fp32_held``: the four-strip combines of
+        the deep rows as tightly as the sweep's short ones.  Then its device
+        ms in both modes (calls back to back) and by strip length, beside
+        its bound (three TF32 products), fp32 SDPA's device ms and the
+        plain versions' single-call ms."""
+        torch, AK = self.torch, self.AK
+        b, h, hk, s, d, blk = ATTN_MAIN
+        q, k, v = self._attn_inputs(b, h, hk, s, d, torch.float32, gen)
+        errs, ref = self._attn_fp32_held(q, k, v, blk, "main shape fp32",
+                                         causal_attention,
+                                         causal_attention_ref)
+        sweep = self._attn_strip_sweep(q, k, v, blk, ref, "main shape fp32")
+        del ref
+        kr, vr = (x.repeat_interleave(h // hk, 1) for x in (k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        bound_ms, bound = self._attn_bound_ms(b, h, hk, s, d, 4)
+        nb = s // blk
+        strip = AK.default_strip(b * h, nb, AK.sm_count(q.device))
+        row = {
+            "shape": {"B": b, "H": h, "Hk": hk, "S": s, "D": d, "block": blk,
+                      "dtype": "float32"},
+            "strip": strip,
+            "cells": {"mapped": b * h * AK.strip_cells(nb, strip),
+                      "bounding_box": b * h * nb * -(-nb // strip)},
+            "device_ms": {mode: self.device_ms(
+                lambda m=mode: causal_attention(q, k, v, blk, blk, m), n=10)
+                for mode in ("mapped", "bounding_box")},
+            "library_device_ms": self.device_ms(
+                lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), n=5),
+            "plain_ms": self.time_ms(lambda: causal_attention_ref(q, kr, vr),
+                                     reps=3),
+            "strip_plain_ms": self.time_ms(
+                lambda: AK.attention_plain(q, k, v, blk, "mapped"), reps=3),
+            # one mapped call's strip and combine kernels in the trace
+            "own_kernels_ms": self._traced(lambda: causal_attention(
+                q, k, v, blk, blk, "mapped"))["own_kernels_ms"],
+            "strip_sweep_ms": sweep, "bound_ms": bound_ms, **bound, **errs}
+        row["ms"] = row["device_ms"]["mapped"]
+        row["x_bound"] = row["ms"] / bound_ms
+        row["x_library"] = row["ms"] / row["library_device_ms"]
+        return row
 
     def _attn_split(self, gen, causal_attention) -> list:
         """simt route: B·H split into several pair launches under a lowered
@@ -2120,14 +2236,15 @@ class Smoke:
             check(AK.attention_route(dtype, blk, d) == "simt",
                   f"{(b, h, s, d, blk)} {dname} is not a simt shape")
             q, k, v = self._attn_inputs(b, h, hk, s, d, dtype, gen)
-            check(AK.bh_group(b * h, s, d, blk) == b * h,
+            strip = AK.default_strip(b * h, s // blk, AK.sm_count(q.device))
+            check(AK.bh_group(b * h, s, d, blk, strip) == b * h,
                   f"{(b, h, s, d, blk)} splits under the default cap")
             whole = causal_attention(q, k, v, blk, blk, "mapped")
             cap = AK.WORKSPACE_CAP_BYTES
             AK.WORKSPACE_CAP_BYTES = group * (
-                AK.tri_grid_size(s // blk) * blk * (d + 2) * 4)
+                AK.strip_cells(s // blk, strip) * blk * (d + 2) * 4)
             try:
-                check(AK.bh_group(b * h, s, d, blk) == group,
+                check(AK.bh_group(b * h, s, d, blk, strip) == group,
                       "the lowered cap gives another group")
                 for mode in ("mapped", "bounding_box"):
                     n0 = AK.ATTN_LAUNCHES
@@ -2143,17 +2260,19 @@ class Smoke:
             finally:
                 AK.WORKSPACE_CAP_BYTES = cap
             rows.append({"shape": [b, h, hk, s, d, blk], "dtype": dname,
-                         "group": group, "launches": want_n,
+                         "strip": strip, "group": group, "launches": want_n,
                          "equal_to_one_launch": True})
         return rows
 
     @staticmethod
-    def _sm90_gates(o, want, plain, what: str) -> dict:
-        """The sm90 route's output o (fp32 view) against the oracle ``want``
-        and against ``attention_stream_plain`` at the same cells per CTA:
-        all elements to 3e-2 of both; rows S/2 and on to LATE_ROW_RTOL of
-        the row's max |o| against the oracle; every row to
-        SM90_PLAIN_ROW_RTOL of its max |o| against the plain version."""
+    def _row_gates(o, want, plain, what: str,
+                   plain_name: str = "attention_stream_plain") -> dict:
+        """A bf16 output o (fp32 view) against the oracle ``want`` and
+        against its route's plain version ``plain`` at the same cells (per
+        CTA on sm90, per strip on simt): all elements to 3e-2 of both; rows
+        S/2 and on to LATE_ROW_RTOL of the row's max |o| against the oracle;
+        every row to PLAIN_ROW_RTOL of its max |o| against the plain
+        version."""
         tol = ATTN_TOL["bfloat16"]
         half = o.shape[2] // 2
         err = float((o - want).abs().max())
@@ -2167,19 +2286,19 @@ class Smoke:
         check(late < LATE_ROW_RTOL,
               f"{what}: rows >= {half}, kernel vs causal_attention_ref "
               f"{late} of the row's max |o| (gate {LATE_ROW_RTOL})")
-        check(err_plain < tol, f"{what}: kernel vs attention_stream_plain "
-              f"max abs err {err_plain} >= {tol}")
-        check(rows_plain <= SM90_PLAIN_ROW_RTOL,
-              f"{what}: kernel vs attention_stream_plain {rows_plain} of a "
-              f"row's max |o| (gate {SM90_PLAIN_ROW_RTOL})")
+        check(err_plain < tol, f"{what}: kernel vs {plain_name} max abs "
+              f"err {err_plain} >= {tol}")
+        check(rows_plain <= PLAIN_ROW_RTOL,
+              f"{what}: kernel vs {plain_name} {rows_plain} of a row's max "
+              f"|o| (gate {PLAIN_ROW_RTOL})")
         return {"vs_causal_attention_ref": err, "late_rows_rel": late,
-                "vs_attention_stream_plain": err_plain,
-                "rows_rel_vs_attention_stream_plain": rows_plain}
+                f"vs_{plain_name}": err_plain,
+                f"rows_rel_vs_{plain_name}": rows_plain}
 
     def _attn_sm90_held(self, q, k, v, blk, what, causal_attention,
                         causal_attention_ref) -> dict:
         """The sm90 route on one input in both modes: each mode bitwise
-        equal over two runs; ``_sm90_gates`` against causal_attention_ref
+        equal over two runs; ``_row_gates`` against causal_attention_ref
         and attention_stream_plain at the card's cells per CTA; mapped
         within 3e-2 of BB.  Returns the errors."""
         torch, AK = self.torch, self.AK
@@ -2202,8 +2321,8 @@ class Smoke:
                   f"{what} {mode}: two runs differ (not deterministic)")
             del again
             plain = AK.attention_plain(q, k, v, blk, mode).float()
-            errs[mode] = self._sm90_gates(out.float(), want, plain,
-                                          f"{what} {mode}")
+            errs[mode] = self._row_gates(out.float(), want, plain,
+                                         f"{what} {mode}")
             del plain
             outs[mode] = out
         mb = float((outs["mapped"].float() - outs["bounding_box"].float())
@@ -2217,7 +2336,7 @@ class Smoke:
     def _attn_sm90_u(self, gen, causal_attention_ref) -> list:
         """The sm90 kernel at explicit cells per CTA (U), through the
         route's private launcher (``launch_attention`` takes the card's U),
-        held by ``_sm90_gates`` against attention_stream_plain at the same U
+        held by ``_row_gates`` against attention_stream_plain at the same U
         and against the oracle: rows split across three or more CTAs,
         U = 1, a CTA over more than one (b, h)."""
         torch, AK = self.torch, self.AK
@@ -2233,8 +2352,8 @@ class Smoke:
                 self.sync()
                 plain = AK.attention_stream_plain(q, k, v, blk, u,
                                                   mode).float()
-                gates = self._sm90_gates(out, want, plain,
-                                         f"sm90 U={u} {mode}")
+                gates = self._row_gates(out, want, plain,
+                                        f"sm90 U={u} {mode}")
                 pieces = AK.stream_pieces(b * h, nb, u, mode)
                 rows.append({"U": u, "mode": mode,
                              "ctas": AK.stream_ctas(b * h, nb, u, mode),
@@ -2248,23 +2367,36 @@ class Smoke:
               "no U took more than one (b, h)")
         return rows
 
-    def _sm90_ptxas(self) -> dict | None:
-        """Registers and spill bytes of the sm90 kernels, from nvcc's
-        ``-Xptxas -v`` output (None where this process did not build)."""
+    def _attn_ptxas(self, route: str) -> dict | None:
+        """Registers and spill bytes of the route's kernels, from nvcc's
+        ``-Xptxas -v`` output (None where this process did not build):
+        sm90, every kernel; simt, the kernel count, the most registers,
+        every kernel that spills and the instantiations timed at ATTN_MAIN
+        (bf16 block 64, fp32 block 128, head_dim 128)."""
         log = self.build_mod.BUILD_LOG.get("tri_attn")
         if not log:
             return None
         out = {}
         for part in log.split("Compiling entry function")[1:]:
             name = part.split("'")[1] if "'" in part else part.split()[0]
-            if "sm90" not in name:
+            if ("sm90" in name) != (route == "sm90") or (
+                    route == "simt" and "ta_strip" not in name):
                 continue
             regs = re.search(r"Used (\d+) registers", part)
             spill = re.search(r"(\d+) bytes spill stores", part)
             out[name] = {"registers": int(regs.group(1)) if regs else None,
                          "spill_store_bytes": int(spill.group(1))
                          if spill else None}
-        return out
+        if route == "sm90":
+            return out
+        timed = ("I13__nv_bfloat16Li64ELi128E", "IfLi128ELi128E")
+        return {"kernels": len(out),
+                "max_registers": max((r["registers"] or 0
+                                      for r in out.values()), default=None),
+                "spilling": {n: r["spill_store_bytes"] for n, r in out.items()
+                             if r["spill_store_bytes"]},
+                "timed": {n: r for n, r in out.items()
+                          if any(t in n for t in timed)}}
 
     def attention(self) -> None:
         torch, AK = self.torch, self.AK
@@ -2310,17 +2442,29 @@ class Smoke:
                           f"{err}")
         check(set(routes) == {"simt", "sm90"},
               f"the sweep took routes {routes}")
-        # the device-side λ -> (i, j) map, exact for every λ < T(NB_MAP)
-        total = AK.tri_grid_size(NB_MAP)
+        # the device-side staircase map λ -> (i, g), exact against int64
+        # torch: at G = 1 (the triangular map) for every λ < T(NB_MAP), at
+        # G = 8 and 16 for every λ < C(NB_MAP, G), and at each of
+        # MAP_STRIPS in windows across 2^31 and at 2^33 cells
+        ranges = [(1, 0, AK.tri_grid_size(NB_MAP)),
+                  (8, 0, AK.strip_cells(NB_MAP, 8)),
+                  (16, 0, AK.strip_cells(NB_MAP, 16))]
+        for strip in MAP_STRIPS:
+            ranges += [(strip, (1 << 31) - (1 << 22), 1 << 23),
+                       (strip, 1 << 33, 1 << 22)]
         step = 1 << 27
-        for lo in range(0, total, step):
-            n = min(step, total - lo)
-            i, j = AK.lam_to_ij_device(lo, n)
-            ei, ej = AK.lam_to_ij(torch.arange(lo, lo + n, device="cuda"))
-            check(torch.equal(i.to(torch.int64), ei)
-                  and torch.equal(j.to(torch.int64), ej),
-                  f"device λ map differs from int64 torch in [{lo}, {lo + n})")
-            del i, j, ei, ej
+        for strip, lo0, count in ranges:
+            for lo in range(lo0, lo0 + count, step):
+                n = min(step, lo0 + count - lo)
+                i, g = AK.lam_to_ig_device(lo, n, strip)
+                ei, eg = AK.lam_to_ig(torch.arange(lo, lo + n, device="cuda"),
+                                      strip)
+                check(torch.equal(i.to(torch.int64), ei)
+                      and torch.equal(g.to(torch.int64), eg),
+                      f"device staircase map (G {strip}) differs from int64 "
+                      f"torch in [{lo}, {lo + n})")
+                del i, g, ei, eg
+        total = AK.tri_grid_size(NB_MAP)
         # gradients through the autograd.Function (backward: the oracle)
         q, k, v = self._attn_inputs(1, 4, 2, 128, 32, torch.float32, gen)
         w = torch.randn(q.shape, generator=gen, device="cuda")
@@ -2358,18 +2502,35 @@ class Smoke:
         check(torch.equal(simt_out["mapped"], simt_out["bounding_box"]),
               "simt block 64 at the main shape: mapped and BB differ")
         kr, vr = (x.repeat_interleave(h // hk, 1) for x in (k, v))
-        simt_err = float((simt_out["mapped"].float()
-                          - causal_attention_ref(q, kr, vr).float())
-                         .abs().max())
-        check(simt_err < ATTN_TOL["bfloat16"],
-              f"simt block 64 at the main shape: vs ref {simt_err}")
+        want = causal_attention_ref(q, kr, vr).float()
+        simt_errs = self._row_gates(
+            simt_out["mapped"].float(), want,
+            AK.attention_plain(q, k, v, LM_SIMT_BLOCK, "mapped").float(),
+            "simt block 64 at the main shape", "attention_pairs_plain")
+        simt_err = simt_errs["vs_causal_attention_ref"]
         del simt_out
+        simt_sweep = self._attn_strip_sweep(q, k, v, LM_SIMT_BLOCK, want,
+                                            "simt block 64 at the main shape")
+        del want
         simt_ms = {mode: self.time_ms(
             lambda m=mode: causal_attention(q, k, v, LM_SIMT_BLOCK,
                                             LM_SIMT_BLOCK, m), reps=3)
             for mode in ("mapped", "bounding_box")}
-        fp32_errs = self._attn_main_fp32(gen, causal_attention,
-                                         causal_attention_ref)
+        simt_device_ms = {mode: self.device_ms(
+            lambda m=mode: causal_attention(q, k, v, LM_SIMT_BLOCK,
+                                            LM_SIMT_BLOCK, m), n=10)
+            for mode in ("mapped", "bounding_box")}
+        simt_kernels_ms = self._traced(lambda: causal_attention(
+            q, k, v, LM_SIMT_BLOCK, LM_SIMT_BLOCK, "mapped"))[
+                "own_kernels_ms"]
+        check(set(simt_kernels_ms) == {"ta_strip_mapped_kernel",
+                                       "ta_strip_combine_kernel"},
+              f"the trace split names the simt call's kernels "
+              f"{sorted(simt_kernels_ms)}")
+        fp32_row = self._attn_main_fp32(gen, causal_attention,
+                                        causal_attention_ref)
+        fp32_strips = self._attn_fp32_strips(gen, causal_attention,
+                                             causal_attention_ref)
         split = self._attn_split(gen, causal_attention)
         plain_ms = self.time_ms(lambda: causal_attention_ref(q, kr, vr),
                                 reps=3)
@@ -2379,6 +2540,9 @@ class Smoke:
         # the host's share of a single call, which the medians above include
         host_us = {"sm90_mapped": self.host_us(
             lambda: causal_attention(q, k, v, blk, blk, "mapped")),
+            "simt_mapped_block64": self.host_us(
+                lambda: causal_attention(q, k, v, LM_SIMT_BLOCK,
+                                         LM_SIMT_BLOCK, "mapped")),
             "library": self.host_us(
                 lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))}
         bound_ms, bound = self._attn_bound_ms(b, h, hk, s, d, 2)
@@ -2386,7 +2550,7 @@ class Smoke:
         u = AK.default_steps_per_cta(b * h, nb, AK.sm_count(q.device))
         ctas = {mode: AK.stream_ctas(b * h, nb, u, mode)
                 for mode in ("mapped", "bounding_box")}
-        ptxas = self._sm90_ptxas()
+        ptxas = self._attn_ptxas("sm90")
         for mode in ("mapped", "bounding_box"):
             emit({"phase": "attention", "card": self.card, "route": "sm90",
                   "mode": mode,
@@ -2397,16 +2561,25 @@ class Smoke:
                   "library_ms": library_ms, "x_bound": ms[mode] / bound_ms,
                   "x_library": ms[mode] / library_ms})
         nb64 = s // LM_SIMT_BLOCK
+        strip64 = AK.default_strip(b * h, nb64, AK.sm_count(q.device))
+        simt_ptxas = self._attn_ptxas("simt")
         emit({"phase": "attention", "card": self.card, "route": "simt",
               "shape": {"B": b, "H": h, "Hk": hk, "S": s, "D": d,
                         "block": LM_SIMT_BLOCK, "dtype": "bfloat16"},
               "ms": simt_ms["mapped"], "bb_ms": simt_ms["bounding_box"],
-              "blocks": {"mapped": b * h * AK.tri_grid_size(nb64),
-                         "bounding_box": b * h * nb64 * nb64},
+              "device_ms": simt_device_ms, "strip": strip64,
+              "strip_sweep_ms": simt_sweep,
+              "own_kernels_ms": simt_kernels_ms,
+              "cells": {"mapped": b * h * AK.strip_cells(nb64, strip64),
+                        "bounding_box": b * h * nb64 * -(-nb64 // strip64)},
               "pair_launches_per_call": -(-(b * h) // AK.bh_group(
-                  b * h, s, d, LM_SIMT_BLOCK)),
+                  b * h, s, d, LM_SIMT_BLOCK, strip64)),
               "bound_ms": bound_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "max_abs_err": simt_err})
+              "library_ms": library_ms, "max_abs_err": simt_err,
+              "x_bound": simt_device_ms["mapped"] / bound_ms,
+              "x_library": simt_device_ms["mapped"] / library_ms})
+        emit({"phase": "attention", "card": self.card, "route": "simt",
+              **fp32_row})
         self.attn_row = {"ms": ms["mapped"], "bb_ms": ms["bounding_box"],
                          "plain_ms": plain_ms, "library_ms": library_ms,
                          "bound_ms": bound_ms,
@@ -2415,19 +2588,32 @@ class Smoke:
                              main_errs["mapped"]["vs_causal_attention_ref"]}
         self.attn_simt_row = {
             "ms": simt_ms["mapped"], "bb_ms": simt_ms["bounding_box"],
+            "device_ms": simt_device_ms["mapped"],
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound["bound_by"],
-            "max_abs_err": simt_err}
+            "max_abs_err": simt_err,
+            "fp32_block128": {
+                k: fp32_row[k] for k in (
+                    "device_ms", "library_device_ms", "plain_ms",
+                    "bound_ms", "bound_by", "fp32_cores_ms",
+                    "causal_attention_ref")}}
         emit({"phase": "attention", "card": self.card,
               "cases": len(ATTN_CASES) * 2, "routes": routes,
               "max_abs_err": worst, "main_bf16_sm90": main_errs,
               "late_row_rtol": LATE_ROW_RTOL,
-              "sm90_plain_row_rtol": SM90_PLAIN_ROW_RTOL,
+              "plain_row_rtol": PLAIN_ROW_RTOL,
               "gqa_d64_sm90": gqa64_errs,
-              "sm90_steps_per_cta": u_rows, "main_fp32_simt": fp32_errs,
+              "main_bf16_block64_simt": simt_errs,
+              "fp32_strips_simt": fp32_strips,
+              "sm90_steps_per_cta": u_rows,
+              "main_fp32_simt": {k: fp32_row[k] for k in fp32_row
+                                 if k.startswith(("causal_attention_ref",
+                                                  "attention_pairs_plain"))},
               "bh_split_simt": split, "simt_mapped_equals_bb": True,
               "sm90_deterministic": True, "lam_map_exact_below": total,
+              "staircase_map_exact": [list(r) for r in ranges],
               "grad_max_abs_err": grad_err, "sm90_ptxas": ptxas,
+              "simt_ptxas": simt_ptxas,
               "bb_over_mapped": ms["bounding_box"] / ms["mapped"],
               "mapped_over_library": ms["mapped"] / library_ms,
               "host_us_per_call": host_us,
@@ -2462,8 +2648,12 @@ class Smoke:
 
         self.reset_counts()
         rows, logits = {}, {}
+        nb64 = LM_SEQ // LM_SIMT_BLOCK
         simt_per_call = -(-cfg.n_heads // AK.bh_group(
-            cfg.n_heads, LM_SEQ, cfg.head_dim, LM_SIMT_BLOCK))
+            cfg.n_heads, LM_SEQ, cfg.head_dim, LM_SIMT_BLOCK,
+            AK.default_strip(cfg.n_heads, nb64, AK.sm_count("cuda"))))
+        check(simt_per_call == 1, f"the block-{LM_SIMT_BLOCK} forward makes "
+              f"{simt_per_call} simt strip launches a layer, want 1")
         for impl in ("pallas_mapped", "pallas_bb", "xla"):
             c = cfg.replace(attn_impl=impl)
             n0 = AK.ATTN_LAUNCHES, AK.ATTN_SM90_LAUNCHES

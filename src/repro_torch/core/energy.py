@@ -78,6 +78,7 @@ A100_POWER_W = {"mapped": 295.0, "bounding_box": 108.0}
 # no sparsity): the bounds every kernel row of the port is held against.
 H100_BF16_FLOPS = 989e12      # spec: dense bf16 tensor-core FLOP/s
 H100_FP32_FLOPS = 67e12       # spec: fp32 FLOP/s outside the tensor cores
+H100_TF32_FLOPS = 495e12      # spec: dense TF32 tensor-core FLOP/s
 H100_HBM_BW = 3.35e12         # spec: HBM3 B/s
 H100_NVLINK_BW = 900e9        # spec: NVLink 4 B/s per GPU (all links, both ways)
 # The inter-node link of one GPU: in an eight-GPU H100 node (DGX H100) each

@@ -1,6 +1,6 @@
 // The tri_attn kernel's sm90 route: causal attention forward on Hopper's
 // tensor cores, for bf16 q, k, v, block 128 and head_dim 64 or 128 (the LM
-// path's case).  Included by tri_attn.cu; the simt pair-and-combine kernel
+// path's case).  Included by tri_attn.cu; the simt strip-and-combine kernel
 // there keeps every other shape.
 //
 // Replaces, on that route, repro/kernels/tri_attn/kernel.py::_attn_kernel.

@@ -17,13 +17,23 @@ before any launch (``attention_route``):
     merges them in ascending j.  ``stream_grid`` / ``stream_pieces`` are that
     enumeration in Python, ``attention_stream_plain`` its arithmetic.
   * ``"simt"`` — every other shape (fp32; bf16 at other blocks or head
-    dims): a pair launch whose grid is the paper's point (``"mapped"``
-    launches B·H·T(nb) blocks, block λ deriving (i, j) from the inverse
-    triangular map; ``"bounding_box"`` launches B·H·nb² and discards j > i),
-    each writing its pair's partial (m, l, acc) to an fp32 workspace, then a
-    combine launch merging them in ascending j, shared by both modes so
-    their outputs are bit-identical.  ``attention_pairs_plain`` is its
-    arithmetic.
+    dims; ``csrc/tri_attn.cu``): cells are strips of G key blocks — cell
+    (bh, i, g) takes q block i against j = gG .. min(i, gG+G-1) with the
+    online softmax in registers and writes one fp32 partial — and the strip
+    launch's grid is the paper's point: ``"mapped"`` launches exactly
+    B·H·C(nb, G) blocks, block λ deriving (i, g) through the exact staircase
+    map (``lam_to_ig``), ``"bounding_box"`` launches B·H·nb·ceil(nb/G) and
+    discards g > i // G.  A combine launch, shared by both modes, merges a
+    row's strips in ascending g, so the two modes' outputs are
+    bit-identical.  Both products run on the tensor cores (``mma.sync``
+    TF32; fp32 inputs split 3xTF32, bf16 ones exact in TF32), K and V
+    arrive by ``cp.async`` into a two-stage ring.  The host picks G
+    (``default_strip``) from nb, B·H and the SM count; G = 1 is the pair
+    grid.  What bounds it: the products (137.5 GFLOP at yi-6b's heads and
+    S 4096: 0.139 ms in bf16, 0.833 ms in fp32 as three TF32 products),
+    with ``mma.sync`` below the card's wgmma rate and the workspace
+    (B·H·C·block·(D+2) fp32, about 1/G of the pair grid's) written and
+    read once.  ``attention_pairs_plain`` is its arithmetic.
 
 ``causal_attention_ref`` (``ref.py``) is the other plain version.
 ``launch_attention`` launches on the current stream and raises where there
@@ -62,9 +72,10 @@ MODES = {"mapped": 0, "bounding_box": 1}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCKS = (16, 32, 64, 128)
 HEAD_DIMS = (8, 16, 32, 64, 128)
-#: the most fp32 workspace (partials) one pair launch may use: the wrapper
+#: the most fp32 workspace (partials) one strip launch may use: the wrapper
 #: splits B·H into launches that stay under it.  The workspace grows as
-#: S²·D/block — 1.1 GB for (B, H, S, D) = (1, 32, 4096, 128) at block 128.
+#: S²·D/(block·G) — 170 MB for (B, H, S, D) = (1, 32, 4096, 128) at block
+#: 128 and G = 8 (the pair grid's, G = 1, was 1.125 GB).
 WORKSPACE_CAP_BYTES = 2 << 30
 _MAX_GRID_YZ = 65535
 #: the sm90 route's case: bf16, block 128, head_dim 64 or 128
@@ -72,6 +83,14 @@ SM90_BLOCK = 128
 SM90_HEAD_DIMS = (64, 128)
 #: an H100 SXM's SMs: the CTA count the plain version assumes off the card
 H100_SMS = 132
+#: the simt route's longest strip (key blocks a cell): at G = 16 the
+#: workspace is under 1/16 of the pair grid's and q is loaded once for 16
+#: key blocks; longer strips lengthen the last wave's cells (the G sweep in
+#: PERF.md: 16 and 32 were alike at block 64, 32 slower at block 128)
+STRIP_MAX = 16
+#: ``default_strip`` keeps at least this many strips' worth of (i, j) block
+#: pairs an SM, so the grid has cells enough to even out the SMs' loads
+STRIP_FILL = 16
 LOG2E = math.log2(math.e)
 
 NO_CARD = ("no CUDA device: the tri_attn kernel runs on the card; pass "
@@ -93,12 +112,32 @@ def attention_route(dtype: torch.dtype, block: int, head_dim: int) -> str:
     return "simt"
 
 
-def bh_group(bh: int, seq: int, head_dim: int, block: int) -> int:
-    """simt route: how many (b, h) one pair launch takes: as many of the
-    B·H as keep its workspace (T(nb)·block·(D+2) fp32 per (b, h)) under
+def strip_cells(nb: int, strip: int) -> int:
+    """C(nb, G) = Σ_i (i // G + 1) = G·T(Q) + r·(Q+1) for nb = QG + r: the
+    simt route's cells (strips) a (b, h), the mapped launch's blocks."""
+    q, r = divmod(nb, strip)
+    return strip * tri_grid_size(q) + r * (q + 1)
+
+
+def default_strip(n_bh: int, nb: int, n_sm: int) -> int:
+    """The simt route's G: the largest power of two up to min(STRIP_MAX,
+    nb) that leaves at least STRIP_FILL·G block pairs an SM
+    (B·H·T(nb) >= STRIP_FILL·G·n_SM); 1 (the pair grid) for small grids.
+    yi-6b's heads at S 4096 on 132 SMs: 8 at block 128, 16 at block 64."""
+    g = 1
+    while (2 * g <= min(STRIP_MAX, nb)
+           and n_bh * tri_grid_size(nb) >= STRIP_FILL * 2 * g * n_sm):
+        g *= 2
+    return g
+
+
+def bh_group(bh: int, seq: int, head_dim: int, block: int,
+             strip: int) -> int:
+    """simt route: how many (b, h) one strip launch takes: as many of the
+    B·H as keep its workspace (C(nb, G)·block·(D+2) fp32 per (b, h)) under
     ``WORKSPACE_CAP_BYTES``, at least one.  A forward makes
     ceil(B·H / group) launches."""
-    per_bh = tri_grid_size(seq // block) * block * (head_dim + 2) * 4
+    per_bh = strip_cells(seq // block, strip) * block * (head_dim + 2) * 4
     return max(1, min(bh, WORKSPACE_CAP_BYTES // per_bh, _MAX_GRID_YZ))
 
 
@@ -119,6 +158,26 @@ def lam_to_ij(lam: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         i = i + up.to(torch.int64) - down.to(torch.int64)
 
 
+def lam_to_ig(lam: torch.Tensor, strip: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The simt route's staircase map λ -> (i, g) over strips of G blocks,
+    exact: rows qG .. qG+G-1 have q+1 strips each and start at λ = G·T(q),
+    so q = tri_row(λ // G) (``lam_to_ij``'s root and ladder),
+    rem = λ - G·T(q), i = qG + rem // (q+1), g = rem mod (q+1).  G = 1 is
+    the triangular map itself."""
+    lam = lam.to(torch.int64)
+    q, _ = lam_to_ij(torch.div(lam, strip, rounding_mode="floor"))
+    rem = lam - strip * ((q * (q + 1)) >> 1)
+    return q * strip + rem // (q + 1), rem % (q + 1)
+
+
+def ig_to_lam(i, g, strip: int):
+    """The inverse of ``lam_to_ig``: cell (i, g)'s λ, on ints or integer
+    tensors."""
+    q = i // strip
+    return strip * ((q * (q + 1)) // 2) + (i - q * strip) * (q + 1) + g
+
+
 # ---------------------------------------------------------------------------
 # build + bind
 # ---------------------------------------------------------------------------
@@ -132,11 +191,11 @@ class _Args(ctypes.Structure):
         ("v", ctypes.c_void_p), ("o", ctypes.c_void_p),
         *[(f"{t}_s{ax}", ctypes.c_int64) for t in "qkvo" for ax in "bhs"],
         ("ws_acc", ctypes.c_void_p), ("ws_m", ctypes.c_void_p),
-        ("ws_l", ctypes.c_void_p),
+        ("ws_l", ctypes.c_void_p), ("cells", ctypes.c_int64),
         ("heads", ctypes.c_int32), ("kv_heads", ctypes.c_int32),
         ("bh0", ctypes.c_int32),
         ("nbh", ctypes.c_int32), ("nb", ctypes.c_int32),
-        ("scale", ctypes.c_float),
+        ("strip", ctypes.c_int32), ("scale_log2", ctypes.c_float),
     ]
 
 
@@ -165,8 +224,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ta_attn_launch.restype = ctypes.c_int
     lib.ta_sm90_launch.argtypes = [ctypes.POINTER(_Sm90Args), i32, vp]
     lib.ta_sm90_launch.restype = ctypes.c_int
-    lib.ta_lam_to_ij_launch.argtypes = [i64, i64, vp, vp, vp]
-    lib.ta_lam_to_ij_launch.restype = ctypes.c_int
+    lib.ta_lam_to_ig_launch.argtypes = [i64, i64, i32, vp, vp, vp]
+    lib.ta_lam_to_ig_launch.restype = ctypes.c_int
     return lib
 
 
@@ -232,27 +291,29 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch_simt(q, k, v, block, grid_mode)
 
 
-def _launch_simt(q, k, v, block: int, grid_mode: str) -> torch.Tensor:
+def _launch_simt(q, k, v, block: int, grid_mode: str,
+                 strip: int | None = None) -> torch.Tensor:
+    """The simt route on checked inputs, at strip length ``strip`` (None:
+    ``default_strip``'s G on this card's SM count)."""
     global ATTN_LAUNCHES
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     b, h, s, d = q.shape
     nb = s // block
-    tri = tri_grid_size(nb)
-    group = bh_group(b * h, s, d, block)
-    ws = torch.empty(group * tri * block * (d + 2), dtype=torch.float32,
-                     device=q.device)
-    n_acc = group * tri * block * d
-    n_row = group * tri * block
+    if strip is None:
+        strip = default_strip(b * h, nb, sm_count(q.device))
+    cells = strip_cells(nb, strip)
+    group = bh_group(b * h, s, d, block, strip)
+    n_row = group * cells * block
+    n_acc = n_row * d
+    ws = torch.empty(n_acc + 2 * n_row, dtype=torch.float32, device=q.device)
+    ws_ptr = ws.data_ptr()
     o = torch.empty((b, s, h, d), dtype=q.dtype,
                     device=q.device).permute(0, 2, 1, 3)
+    (q, qs), (k, ks), (v, vs) = (_aligned_strides(t) for t in (q, k, v))
     args = _Args(
-        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
-        ws_acc=ws.data_ptr(), ws_m=ws[n_acc:].data_ptr(),
-        ws_l=ws[n_acc + n_row:].data_ptr(),
-        heads=h, kv_heads=k.shape[1], nb=nb, scale=d ** -0.5)
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
-        for ax, stride in zip("bhs", t.stride()[:3]):
-            setattr(args, f"{name}_s{ax}", stride)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *qs, *ks,
+        *vs, *o.stride()[:3], ws_ptr, ws_ptr + 4 * n_acc,
+        ws_ptr + 4 * (n_acc + n_row), cells, h, k.shape[1], 0, 0, nb, strip,
+        d ** -0.5 * LOG2E)
     lib = build.load(LIB)
     for bh0 in range(0, b * h, group):
         args.bh0 = bh0
@@ -261,8 +322,8 @@ def _launch_simt(q, k, v, block: int, grid_mode: str) -> torch.Tensor:
                                 MODES[grid_mode], _stream())
         if rc != 0:
             raise RuntimeError(f"tri_attn launch ({grid_mode}, block {block}, "
-                               f"head_dim {d}, {q.dtype}) failed: "
-                               f"cudaError {rc}")
+                               f"head_dim {d}, {q.dtype}, strip {strip}) "
+                               f"failed: cudaError {rc}")
         with _count_mu:
             ATTN_LAUNCHES += 1
     return o
@@ -283,14 +344,15 @@ def sm_count(device: torch.device) -> int:
                      else torch.cuda.current_device())
 
 
-def _tma_strides(t: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
-    """t, or a contiguous copy where a TMA map cannot describe it (d not
-    contiguous, a base not 16-byte aligned, a stride not a multiple of 16
-    bytes); and its (b, h, s) element strides, with any size-1 dimension's
-    stride set to a valid multiple."""
+def _aligned_strides(t: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
+    """t, or a contiguous copy where a TMA map or a 16-byte ``cp.async``
+    cannot read it (d not contiguous, a base not 16-byte aligned, a stride
+    not a multiple of 16 bytes); and its (b, h, s) element strides, with
+    any size-1 dimension's stride set to a valid multiple."""
     shape, st = t.shape, t.stride()
+    per16 = 16 // t.element_size()
     if (st[3] != 1 or t.data_ptr() % 16
-            or any(st[ax] % 8 for ax in range(3) if shape[ax] > 1)):
+            or any(st[ax] % per16 for ax in range(3) if shape[ax] > 1)):
         t = t.contiguous()
         st = t.stride()
     return t, [st[ax] if shape[ax] > 1 else math.prod(shape[ax + 1:])
@@ -326,7 +388,7 @@ def _launch_sm90(q, k, v, grid_mode: str,
     ws = torch.empty(n_acc + 2 * n_row, dtype=torch.float32,
                      device=q.device)
     ws_ptr = ws.data_ptr()
-    (q, qs), (k, ks), (v, vs) = (_tma_strides(t) for t in (q, k, v))
+    (q, qs), (k, ks), (v, vs) = (_aligned_strides(t) for t in (q, k, v))
     args = _Sm90Args(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *qs, *ks,
         *vs, *o.stride()[:3], ws_ptr, ws_ptr + 4 * n_acc,
@@ -342,18 +404,21 @@ def _launch_sm90(q, k, v, grid_mode: str,
     return o
 
 
-def lam_to_ij_device(lam0: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(i, j) as int32 CUDA tensors for λ in [lam0, lam0 + n), computed by
-    the pair kernel's own device function — to hold it exact."""
+def lam_to_ig_device(lam0: int, n: int, strip: int = 1
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(i, g) as int32 CUDA tensors for λ in [lam0, lam0 + n), computed by
+    the strip kernel's own staircase map at strip length ``strip`` — to hold
+    it exact against ``lam_to_ig``.  Strip 1 gives the triangular map's
+    (i, j)."""
     _require_cuda()
     i = torch.empty(n, dtype=torch.int32, device="cuda")
-    j = torch.empty(n, dtype=torch.int32, device="cuda")
-    rc = build.load(LIB).ta_lam_to_ij_launch(
-        lam0, n, ctypes.c_void_p(i.data_ptr()), ctypes.c_void_p(j.data_ptr()),
-        _stream())
+    g = torch.empty(n, dtype=torch.int32, device="cuda")
+    rc = build.load(LIB).ta_lam_to_ig_launch(
+        lam0, n, strip, ctypes.c_void_p(i.data_ptr()),
+        ctypes.c_void_p(g.data_ptr()), _stream())
     if rc != 0:
         raise RuntimeError(f"tri_attn λ map launch failed: cudaError {rc}")
-    return i, j
+    return i, g
 
 
 def reset_launch_counts() -> None:
@@ -459,7 +524,10 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         u = default_steps_per_cta(q.shape[0] * q.shape[1], nb,
                                   sm_count(q.device))
         return attention_stream_plain(q, k, v, block, u, grid_mode)
-    return attention_pairs_plain(q, k, v, block)
+    nb = q.shape[2] // block
+    return attention_pairs_plain(
+        q, k, v, block, default_strip(q.shape[0] * q.shape[1], nb,
+                                      sm_count(q.device)))
 
 
 def attention_stream_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -550,46 +618,75 @@ def attention_stream_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_pairs_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          block: int) -> torch.Tensor:
-    """Plain torch version of the kernel's arithmetic, on q's device: every
-    (i, j) pair's partial (block-local max m, l = Σ exp(s - m),
-    acc = exp(s - m)·v) in fp32, then the merge over ascending j with the
-    online-softmax rescale.  GQA reads kv head h // (H/Hk), as the kernel
-    does.  Returns o (B, H, S, D) in q's dtype."""
+                          block: int, strip: int | None = None
+                          ) -> torch.Tensor:
+    """Plain torch version of the simt route's arithmetic, on q's device, at
+    strip length ``strip`` (default: ``default_strip`` on an H100's SMs
+    where q lies on the CPU, else on the card's).  Every cell (i, g) of
+    ``lam_to_ig`` walks its strip's key blocks j = gG .. min(i, gG+G-1) in
+    ascending j, all cells in step, carrying the online softmax in the log2
+    domain — s = (q k^T)·D^-1/2·log2 e in fp32, the causal mask where
+    j == i, m' = max(m, rowmax s), p = 2^(s - m'), l' = l·2^(m - m') + Σp,
+    acc' = acc·2^(m - m') + p v, fp32 products — then row i merges its
+    strips in ascending g (α = 2^(m - m'), β = 2^(m_g - m')) and writes
+    acc / l.  GQA reads kv head h // (H/Hk).  Returns o (B, H, S, D) in q's
+    dtype."""
     check_shapes(q, k, v, block)
     b, h, s, d = q.shape
     hk = k.shape[1]
-    g = h // hk
+    grp = h // hk
     nb = s // block
+    if strip is None:
+        strip = default_strip(b * h, nb, sm_count(q.device))
+    if not 1 <= strip <= nb:
+        raise ValueError(f"strip {strip}: want 1 <= strip <= {nb}")
     dev = q.device
-    qf = (q.to(torch.float32) * (d ** -0.5)).reshape(b, hk, g, nb, block, d)
-    kf = k.to(torch.float32).reshape(b, hk, nb, block, d)
-    vf = v.to(torch.float32).reshape(b, hk, nb, block, d)
-    i, j = lam_to_ij(torch.arange(tri_grid_size(nb), device=dev))
-    sc = torch.einsum("bkgtrd,bktcd->bkgtrc", qf[:, :, :, i], kf[:, :, j])
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, hk, grp, nb, block, d)
+    kf = k.to(f32).reshape(b, hk, nb, block, d)
+    vf = v.to(f32).reshape(b, hk, nb, block, d)
+    n_cell = strip_cells(nb, strip)
+    ci, cg = lam_to_ig(torch.arange(n_cell, device=dev), strip)
+    scale_log2 = torch.tensor(d ** -0.5 * LOG2E, dtype=f32).item()
     pos = torch.arange(block, device=dev)
-    keep = (i[:, None, None] * block + pos[:, None]
-            >= j[:, None, None] * block + pos[None, :])
-    sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
-    m = sc.amax(dim=-1)
-    p = torch.exp(sc - m[..., None])
-    l_pair = p.sum(dim=-1)
-    acc = torch.einsum("bkgtrc,bktcd->bkgtrd", p, vf[:, :, j])
-
-    m_run = torch.full((b, hk, g, nb, block), NEG_INF, device=dev)
-    l_run = torch.zeros((b, hk, g, nb, block), device=dev)
-    a_run = torch.zeros((b, hk, g, nb, block, d), device=dev)
-    for jj in range(nb):
-        rows = torch.arange(jj, nb, device=dev)
-        lam = rows * (rows + 1) // 2 + jj
-        mj = m[:, :, :, lam]
-        mn = torch.maximum(m_run[:, :, :, rows], mj)
-        alpha = torch.exp(m_run[:, :, :, rows] - mn)
-        beta = torch.exp(mj - mn)
-        l_run[:, :, :, rows] = l_run[:, :, :, rows] * alpha \
-            + l_pair[:, :, :, lam] * beta
-        a_run[:, :, :, rows] = a_run[:, :, :, rows] * alpha[..., None] \
-            + acc[:, :, :, lam] * beta[..., None]
-        m_run[:, :, :, rows] = mn
+    above = pos[None, :] > pos[:, None]              # key after query
+    m = torch.full((b, hk, grp, n_cell, block), NEG_INF, dtype=f32,
+                   device=dev)
+    lsum = torch.zeros((b, hk, grp, n_cell, block), dtype=f32, device=dev)
+    acc = torch.zeros((b, hk, grp, n_cell, block, d), dtype=f32, device=dev)
+    for t in range(strip):
+        jt = cg * strip + t
+        live = (jt <= ci).nonzero().squeeze(1)       # strips reaching step t
+        it, jt = ci[live], jt[live]
+        sc = torch.einsum("bkgnrd,bkncd->bkgnrc", qf[:, :, :, it],
+                          kf[:, :, jt]) * scale_log2
+        sc = torch.where((it == jt)[:, None, None] & above, NEG_INF, sc)
+        m_old = m[:, :, :, live]
+        mn = torch.maximum(m_old, sc.amax(-1))
+        alpha = torch.exp2(m_old - mn)
+        p = torch.exp2(sc - mn[..., None])
+        lsum[:, :, :, live] = lsum[:, :, :, live] * alpha + p.sum(-1)
+        acc[:, :, :, live] = (acc[:, :, :, live] * alpha[..., None]
+                              + torch.einsum("bkgnrc,bkncd->bkgnrd", p,
+                                             vf[:, :, jt]))
+        m[:, :, :, live] = mn
+    rows = torch.arange(nb, device=dev)
+    first = ig_to_lam(rows, 0, strip)                # row i's strip 0
+    m_run = torch.full((b, hk, grp, nb, block), NEG_INF, dtype=f32,
+                       device=dev)
+    l_run = torch.zeros((b, hk, grp, nb, block), dtype=f32, device=dev)
+    a_run = torch.zeros((b, hk, grp, nb, block, d), dtype=f32, device=dev)
+    for g in range((nb - 1) // strip + 1):
+        r = rows[g * strip:]                         # rows with a strip g
+        cell = first[r] + g
+        mj = m[:, :, :, cell]
+        mn = torch.maximum(m_run[:, :, :, r], mj)
+        alpha = torch.exp2(m_run[:, :, :, r] - mn)
+        beta = torch.exp2(mj - mn)
+        l_run[:, :, :, r] = l_run[:, :, :, r] * alpha \
+            + lsum[:, :, :, cell] * beta
+        a_run[:, :, :, r] = a_run[:, :, :, r] * alpha[..., None] \
+            + acc[:, :, :, cell] * beta[..., None]
+        m_run[:, :, :, r] = mn
     out = a_run / l_run[..., None]
     return out.reshape(b, h, s, d).to(q.dtype)

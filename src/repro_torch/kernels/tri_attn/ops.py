@@ -10,8 +10,8 @@ in place), runs the forward, and differentiates through the plain oracle
 64 or 128; ``"simt"`` otherwise), and raises on CPU tensors, without a card
 or when a launch fails; ``interpret=True`` runs, on CPU tensors, the plain
 version of the route the card would take (``attention_stream_plain`` with
-an H100's CTA grid, or ``attention_pairs_plain``).  Nothing falls back from
-one to the other.
+an H100's CTA grid, or ``attention_pairs_plain`` with an H100's strip
+length).  Nothing falls back from one to the other.
 """
 from __future__ import annotations
 

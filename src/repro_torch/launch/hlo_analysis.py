@@ -33,8 +33,8 @@ from collections import defaultdict
 
 #: the port's hand-written CUDA kernels, by function name
 OWN_KERNELS = (
-    "ta_sm90_kernel", "ta_sm90_combine_kernel", "ta_pair_mapped_kernel",
-    "ta_pair_bb_kernel", "ta_combine_kernel", "ta_lam_to_ij_kernel",
+    "ta_sm90_kernel", "ta_sm90_combine_kernel", "ta_strip_mapped_kernel",
+    "ta_strip_bb_kernel", "ta_strip_combine_kernel", "ta_lam_to_ig_kernel",
     "wkv_states_kernel", "wkv_scan_kernel", "wkv_outputs_kernel",
     "dm_map_peel_kernel", "dm_map_digits_kernel",
     "dm_membership_chain_kernel", "dm_membership_digits_kernel",

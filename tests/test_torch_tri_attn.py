@@ -5,6 +5,8 @@ accounting, and the kernel path raising where there is no card.  Both
 packages run with ``interpret=True``: the reference's Pallas kernel in
 interpret mode, the port's plain version of its CUDA kernel (the same
 pair-and-combine arithmetic).  Inputs are made by numpy from a seed."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -180,7 +182,7 @@ def test_kernel_path_raises_on_cpu_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kernel.launch_attention(q, k, v, 16, "mapped")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        kernel.lam_to_ij_device(0, 16)
+        kernel.lam_to_ig_device(0, 16)
     assert kernel.ATTN_LAUNCHES == 0
 
 
@@ -192,3 +194,143 @@ def test_bad_arguments_raise(bad):
     args = dict(block_q=16, block_k=16, grid_mode="mapped", interpret=True)
     with pytest.raises(ValueError):
         causal_attention(q, k, v, **{**args, **bad})
+
+
+# ---------------------------------------------------------------------------
+# the simt route's strips: cells (i, g) of G key blocks on the staircase map
+# ---------------------------------------------------------------------------
+
+STRIPS = (1, 2, 3, 4, 8)
+
+
+@pytest.mark.parametrize("strip", STRIPS)
+def test_staircase_map_exact_against_enumeration(strip):
+    """For every nb <= 200, λ -> (i, g) enumerates exactly the cells
+    (i, g <= i // G) in row order, ``ig_to_lam`` inverts it, and the count
+    is C(nb, G) = G·T(Q) + r·(Q+1)."""
+    i_all, g_all = kernel.lam_to_ig(
+        torch.arange(kernel.strip_cells(200, strip)), strip)
+    for nb in range(strip, 201):
+        want = [(i, g) for i in range(nb) for g in range(i // strip + 1)]
+        n = kernel.strip_cells(nb, strip)
+        q, r = divmod(nb, strip)
+        assert n == len(want) == strip * q * (q + 1) // 2 + r * (q + 1)
+        assert list(zip(i_all[:n].tolist(), g_all[:n].tolist())) == want
+    lam = kernel.ig_to_lam(i_all, g_all, strip)
+    assert torch.equal(lam, torch.arange(lam.numel()))
+
+
+@pytest.mark.parametrize("strip", STRIPS)
+def test_staircase_map_exact_in_int64_up_to_nb_65535(strip):
+    """Spot λ near every tenth of C(65535, G), at the last cell and past
+    2^31 (the map is int64 whatever the grid holds): each (i, g) is a cell
+    of the staircase and maps back to its λ."""
+    total = kernel.strip_cells(NB_MAX, strip)
+    starts = [total * k // 10 for k in range(10)] + [total - 512,
+                                                     (1 << 31) - 256,
+                                                     (1 << 33) + 7]
+    lam = torch.cat([torch.arange(a, a + 512) for a in starts])
+    i, g = kernel.lam_to_ig(lam, strip)
+    assert bool(((g >= 0) & (g <= i // strip)).all())
+    assert torch.equal(kernel.ig_to_lam(i, g, strip), lam)
+    last_i, last_g = kernel.lam_to_ig(torch.tensor([total - 1]), strip)
+    assert (int(last_i), int(last_g)) == (NB_MAX - 1, (NB_MAX - 1) // strip)
+    # the map agrees with the triangular map of λ // G for the row group
+    q, _ = kernel.lam_to_ij(lam // strip)
+    assert torch.equal(i // strip, q)
+
+
+@pytest.mark.parametrize("nb,strip,mapped,bb", [
+    (32, 8, 80, 128), (64, 8, 288, 512), (32, 1, 528, 1024),
+    (7, 3, 12, 21), (1, 1, 1, 1), (10, 10, 10, 10),
+    (65535, 8, 268_460_032, 536_862_720)])
+def test_cell_counts(nb, strip, mapped, bb):
+    """The mapped launch's C(nb, G) blocks and the BB launch's
+    nb·ceil(nb/G), a (b, h)."""
+    assert kernel.strip_cells(nb, strip) == mapped
+    assert nb * -(-nb // strip) == bb
+    assert sum(i // strip + 1 for i in range(nb)) == mapped
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_out(case, dtype, mode):
+    (jq, jk, jv), _ = _both(_inputs(7, *[case[:4]] * 3), dtype)
+    return _np(ref_causal_attention(jq, jk, jv, case[4], case[4], mode,
+                                    True))
+
+
+@pytest.mark.parametrize("b,h,s,d,blk", CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("strip,mode", [("1", "mapped"),
+                                        ("2", "bounding_box"),
+                                        ("nb", "mapped")])
+def test_strip_plain_matches_reference_kernel(b, h, s, d, blk, dtype,
+                                              strip, mode):
+    """The simt route's plain version at G = 1, 2 and nb against the
+    reference's interpret-mode kernel (its output in each grid mode is
+    computed once for the file)."""
+    _, (q, k, v) = _both(_inputs(7, *[(b, h, s, d)] * 3), dtype)
+    nb = s // blk
+    g = nb if strip == "nb" else min(int(strip), nb)
+    got = kernel.attention_pairs_plain(q, k, v, blk, g)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = _reference_out((b, h, s, d, blk), dtype, mode)
+    assert np.abs(_np(got) - want).max() < DTYPES[dtype][2]
+
+
+def test_strip_plain_gqa_and_default():
+    """GQA read in place at G = 3 (a short last strip), and the default G
+    being the H100 chooser's."""
+    qa, ka, va = _inputs(8, (1, 4, 448, 16), (1, 2, 448, 16),
+                         (1, 2, 448, 16))
+    q, k, v = (torch.from_numpy(a) for a in (qa, ka, va))
+    want = causal_attention_ref(q, k.repeat_interleave(2, 1),
+                                v.repeat_interleave(2, 1))
+    got = kernel.attention_pairs_plain(q, k, v, 32, 3)
+    assert (got - want).abs().max() < 3e-5
+    g = kernel.default_strip(4, 14, kernel.H100_SMS)
+    assert torch.equal(kernel.attention_pairs_plain(q, k, v, 32),
+                       kernel.attention_pairs_plain(q, k, v, 32, g))
+    with pytest.raises(ValueError):
+        kernel.attention_pairs_plain(q, k, v, 32, 15)
+
+
+@pytest.mark.parametrize("n_bh,nb,n_sm,want", [
+    (32, 32, 132, 8), (32, 64, 132, 16), (1, 4, 132, 1), (48, 1, 132, 1),
+    (4, 8, 132, 1), (128, 16, 132, 8), (8, 32, 132, 2), (16, 32, 132, 4),
+    (32, 32, 264, 4), (1024, 4, 132, 4)])
+def test_default_strip(n_bh, nb, n_sm, want):
+    """G: the largest power of two up to min(16, nb) leaving 16·G block
+    pairs an SM; at yi-6b's heads at S 4096, 8 at block 128 and 16 at 64."""
+    g = kernel.default_strip(n_bh, nb, n_sm)
+    assert g == want
+    assert g == 1 or n_bh * kernel.tri_grid_size(nb) >= (
+        kernel.STRIP_FILL * g * n_sm)
+
+
+@pytest.mark.parametrize("bh,s,d,blk,strip,want", [
+    (32, 4096, 128, 128, 8, 32), (32, 4096, 128, 64, 8, 32),
+    (32, 4096, 128, 64, 1, 31), (32, 4096, 128, 128, 1, 32),
+    (100000, 128, 8, 16, 2, 65535), (1, 65536, 128, 16, 1, 1)])
+def test_bh_group_workspace(bh, s, d, blk, strip, want):
+    """(b, h) a strip launch: C(nb, G)·block·(D+2) fp32 each under the
+    2 GiB cap — yi-6b's heads fit one launch at G = 8, and at block 64 the
+    pair grid (G = 1) needed two."""
+    group = kernel.bh_group(bh, s, d, blk, strip)
+    assert group == want
+    per_bh = kernel.strip_cells(s // blk, strip) * blk * (d + 2) * 4
+    assert group == 1 or group * per_bh <= kernel.WORKSPACE_CAP_BYTES
+
+
+def test_plain_follows_the_strips_arithmetic():
+    """The plain version carries the online softmax along a strip: at
+    G = nb each row is one strip, at G = 1 each pair is; both agree with
+    the oracle in fp32, to rounding."""
+    qa, ka, va = _inputs(9, *[(2, 2, 256, 32)] * 3)
+    q, k, v = (torch.from_numpy(a) for a in (qa, ka, va))
+    want = causal_attention_ref(q, k, v)
+    one = kernel.attention_pairs_plain(q, k, v, 32, 1)
+    whole = kernel.attention_pairs_plain(q, k, v, 32, 8)
+    assert (one - want).abs().max() < 3e-6
+    assert (whole - want).abs().max() < 3e-6
+    assert (one - whole).abs().max() < 3e-6
