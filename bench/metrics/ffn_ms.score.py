@@ -1,0 +1,11 @@
+"""``ffn_ms.score``: device ms a traced request of every launch charged to
+the program's ``repro_torch.ffn`` ranges (``models/transformer.py``: a
+layer's second norm, SwiGLU or channel mix and residual add), by ``_spans``'
+rule."""
+from bench.metrics import _spans
+
+SPANS = {}
+
+
+def read(ctx):
+    return _spans.ms_per_item(ctx, ["ffn"])

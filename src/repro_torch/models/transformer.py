@@ -33,6 +33,9 @@ products' outputs, ``"none"`` everything), as the reference's
 ``jax.checkpoint`` does.  ``param_specs`` is the reference's logical-axis
 tree, stacked axes included; ``param_axes`` gives each port parameter its
 own axes (the tree's leaf at ``jax_path(name)`` without the stacked ones).
+While a torch profiler records, each layer function opens the ranges
+``repro_torch.mixer`` and ``repro_torch.ffn`` around its two halves and
+``_logits`` opens ``repro_torch.head`` (``obs/trace.py``'s ``region``).
 
 In a split step (the sharded train step, the dry run's steps;
 ``distribution/tensor_parallel.py``) each layer function gathers its layer's
@@ -66,6 +69,7 @@ from repro_torch.models.common import (
     island_dtype, jax_path, layer_norm, mlp_specs, prepend_layers_axis,
     rms_norm, swiglu,
 )
+from repro_torch.obs.trace import region
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 #: an RWKV layer takes the chunked WKV when the sequence is a multiple of
@@ -226,20 +230,23 @@ def _layer_apply(p: DecoderLayer, cfg, x, *, positions=None, cache=None,
     """Returns (x, new_cache), or (x, new_cache, moe aux) with with_aux."""
     apply = (attn.mla_apply if isinstance(p.attn, attn.MLAAttention)
              else attn.gqa_apply)
-    h, new_cache = apply(p.attn, cfg, rms_norm(x, p.ln1), positions=positions,
-                         cache=cache, cross_kv=cross_kv)
-    if cross_kv is not None:
-        h = h * torch.tanh(p.xattn_gate).to(h.dtype)
-    x = x + h
-    inner = rms_norm(x, p.ln2)
+    with region("mixer"):
+        h, new_cache = apply(p.attn, cfg, rms_norm(x, p.ln1),
+                             positions=positions, cache=cache,
+                             cross_kv=cross_kv)
+        if cross_kv is not None:
+            h = h * torch.tanh(p.xattn_gate).to(h.dtype)
+        x = x + h
     aux = None
-    if p.moe is not None:
-        out = moe_mod.moe_apply(p.moe, cfg, inner, with_aux=with_aux)
-        if with_aux:
-            out, aux = out
-        x = x + out
-    else:
-        x = x + swiglu(inner, p.mlp.gate, p.mlp.up, p.mlp.down)
+    with region("ffn"):
+        inner = rms_norm(x, p.ln2)
+        if p.moe is not None:
+            out = moe_mod.moe_apply(p.moe, cfg, inner, with_aux=with_aux)
+            if with_aux:
+                out, aux = out
+            x = x + out
+        else:
+            x = x + swiglu(inner, p.mlp.gate, p.mlp.up, p.mlp.down)
     if not with_aux:
         return x, new_cache
     if aux is None:
@@ -307,10 +314,11 @@ def _vocab_product(h, w, vocab_dim: int):
 
 def _logits(params, cfg, h):
     """fp32 logits (this rank's vocab chunk in a split step)."""
-    h = rms_norm(h, params.final_norm)
-    if cfg.tie_embeddings:
-        return _vocab_product(h, params.embed, 0)
-    return _vocab_product(h, params.lm_head, 1)
+    with region("head"):
+        h = rms_norm(h, params.final_norm)
+        if cfg.tie_embeddings:
+            return _vocab_product(h, params.embed, 0)
+        return _vocab_product(h, params.lm_head, 1)
 
 
 class _Lookup(torch.autograd.Function):
@@ -411,18 +419,21 @@ def _rwkv_layer_apply(p: RWKVLayer, cfg, x, state):
     """state: dict(tmix_x, cmix_x, wkv), ``wkv`` None for zeros (a
     cache-less pass: the new ``wkv`` is then this rank's heads under a
     split step, else whole). Chunked when seq allows, else scan."""
-    n1 = rms_norm(x, p.ln1)
-    if x.shape[1] % RWKV_CHUNK:
-        o, last_x, wkv = rwkv.rwkv_mix_scan(p.tmix, cfg, n1, state["tmix_x"],
-                                            state["wkv"])
-    else:
-        o, last_x, wkv = rwkv.rwkv_mix_chunked(p.tmix, cfg, n1,
-                                               state["tmix_x"], state["wkv"],
-                                               chunk=RWKV_CHUNK)
-    x = x + o
-    o2, last_c = rwkv.rwkv_cmix_apply(p.cmix, cfg, rms_norm(x, p.ln2),
-                                      state["cmix_x"])
-    x = x + o2
+    with region("mixer"):
+        n1 = rms_norm(x, p.ln1)
+        if x.shape[1] % RWKV_CHUNK:
+            o, last_x, wkv = rwkv.rwkv_mix_scan(p.tmix, cfg, n1,
+                                                state["tmix_x"], state["wkv"])
+        else:
+            o, last_x, wkv = rwkv.rwkv_mix_chunked(p.tmix, cfg, n1,
+                                                   state["tmix_x"],
+                                                   state["wkv"],
+                                                   chunk=RWKV_CHUNK)
+        x = x + o
+    with region("ffn"):
+        o2, last_c = rwkv.rwkv_cmix_apply(p.cmix, cfg, rms_norm(x, p.ln2),
+                                          state["cmix_x"])
+        x = x + o2
     return x, {"tmix_x": last_x, "cmix_x": last_c, "wkv": wkv}
 
 
@@ -486,8 +497,9 @@ class HybridLM(nn.Module):
 
 
 def _mamba_layer_apply(lp: MambaLayer, cfg, x, state, conv_tail):
-    return m2.mamba2_apply(lp.mamba, cfg, rms_norm(x, lp.ln), state=state,
-                           conv_tail=conv_tail)
+    with region("mixer"):
+        return m2.mamba2_apply(lp.mamba, cfg, rms_norm(x, lp.ln), state=state,
+                               conv_tail=conv_tail)
 
 
 def _hybrid_stack(params: HybridLM, cfg, x, *, positions=None, cache=None):
@@ -612,9 +624,11 @@ def _whisper_encode(params: WhisperLM, cfg, frames):
 
 
 def _whisper_enc_layer(lp: WhisperEncLayer, cfg, x):
-    x = x + _bidir_attn(lp.attn, cfg, layer_norm(x, lp.ln1_w, lp.ln1_b))
-    return x + gelu_mlp(layer_norm(x, lp.ln2_w, lp.ln2_b), lp.mlp.up,
-                        lp.mlp.down)
+    with region("mixer"):
+        x = x + _bidir_attn(lp.attn, cfg, layer_norm(x, lp.ln1_w, lp.ln1_b))
+    with region("ffn"):
+        return x + gelu_mlp(layer_norm(x, lp.ln2_w, lp.ln2_b), lp.mlp.up,
+                            lp.mlp.down)
 
 
 def _whisper_dec_stack(params: WhisperLM, cfg, x, enc_states, *,
@@ -637,16 +651,19 @@ def _whisper_dec_layer(lp: WhisperDecLayer, cfg, x, enc_states, positions,
                        cache, cross_kv):
     """One decoder layer; ``cross_kv``: this layer's (k, v) projected at
     prefill, or None to attend over ``enc_states``."""
-    h, c = attn.gqa_apply(lp.attn, cfg, layer_norm(x, lp.ln1_w, lp.ln1_b),
-                          positions=positions, cache=cache)
-    x = x + h
-    nx = layer_norm(x, lp.lnx_w, lp.lnx_b)
-    if cross_kv is not None:
-        x = x + attn.cached_cross(lp.xattn, cfg, nx, *cross_kv)
-    else:
-        x = x + attn.gqa_apply(lp.xattn, cfg, nx, cross_kv=enc_states)[0]
-    x = x + gelu_mlp(layer_norm(x, lp.ln2_w, lp.ln2_b), lp.mlp.up,
-                     lp.mlp.down)
+    with region("mixer"):
+        h, c = attn.gqa_apply(lp.attn, cfg,
+                              layer_norm(x, lp.ln1_w, lp.ln1_b),
+                              positions=positions, cache=cache)
+        x = x + h
+        nx = layer_norm(x, lp.lnx_w, lp.lnx_b)
+        if cross_kv is not None:
+            x = x + attn.cached_cross(lp.xattn, cfg, nx, *cross_kv)
+        else:
+            x = x + attn.gqa_apply(lp.xattn, cfg, nx, cross_kv=enc_states)[0]
+    with region("ffn"):
+        x = x + gelu_mlp(layer_norm(x, lp.ln2_w, lp.ln2_b), lp.mlp.up,
+                         lp.mlp.down)
     return x, c
 
 
@@ -663,8 +680,9 @@ def _whisper_cross(params: WhisperLM, cfg, enc_states, cross):
 
 
 def _whisper_logits(params: WhisperLM, cfg, x):
-    h = layer_norm(x, params.final_norm, params.final_norm_b)
-    return _vocab_product(h, params.lm_head, 1)
+    with region("head"):
+        h = layer_norm(x, params.final_norm, params.final_norm_b)
+        return _vocab_product(h, params.lm_head, 1)
 
 
 def _stack(params, cfg, x, *, positions=None, caches=None, extra=None):

@@ -12,8 +12,8 @@ measurement surfaces this package provides:
 
 ``enabled=False`` turns request *tracing* off (no ID generation, no
 contextvar activation, no span records) while metrics keep flowing — the
-knob behind ``--no-observability`` and the instrumentation-overhead
-benchmark.
+knob behind ``--no-observability``.  The model path's profiler ranges
+(:func:`repro_torch.obs.trace.region`) follow the torch profiler instead.
 """
 from __future__ import annotations
 

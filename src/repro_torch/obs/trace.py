@@ -29,6 +29,22 @@ the stack:
 
 Everything here is a no-op (one contextvar read) when no trace is active,
 which is what keeps the hot path's instrumentation overhead in the noise.
+
+Ranges on the model path
+------------------------
+
+:func:`region` names a layer of the model path (``step``, ``mixer``,
+``ffn``, ``head``, ``loss``) for ``torch.profiler``: while a profiler is
+recording, it opens ``record_function("repro_torch.<name>")``, a range in the
+same trace as the kernels it launches and on the same clock; otherwise it is
+the shared no-op.  The gate is torch's own flag,
+``torch.autograd.profiler._is_profiler_enabled``, read through the module at
+every call: a range entered and left costs about 13 µs on a CPU with or
+without a profiler, the flag's read under 0.1 µs, and a scoring request
+passes some 70 ranges.  There is no setting: the ranges follow the profiler.
+They record nothing into a request's :class:`TraceBuffer`, whose span budget
+is a request's, not a model's.  A layer recomputed in the backward (remat)
+opens its ranges again there, inside the autograd node that asked for it.
 """
 from __future__ import annotations
 
@@ -204,6 +220,25 @@ def span(name: str, **attrs):
     if ctx is None:
         return _NOOP
     return _LiveSpan(ctx[0], ctx[1], name, attrs)
+
+
+#: prefix of every model-path range's name in a profiler trace
+REGION_PREFIX = "repro_torch."
+
+#: ``torch.autograd.profiler``, imported at the first :func:`region` call so
+#: that this module stays importable without torch
+_profiler = None
+
+
+def region(name: str):
+    """Context manager: ``record_function(REGION_PREFIX + name)`` while a
+    torch profiler is recording, the shared no-op otherwise."""
+    global _profiler
+    if _profiler is None:
+        import torch.autograd.profiler as _profiler
+    if not _profiler._is_profiler_enabled:
+        return _NOOP
+    return _profiler.record_function(REGION_PREFIX + name)
 
 
 def meta_context() -> dict:

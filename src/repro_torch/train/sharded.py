@@ -53,6 +53,7 @@ from repro_torch.distribution import sharding as shd
 from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.distribution.tensor_parallel import DATA_AXES
 from repro_torch.models import transformer as T
+from repro_torch.obs.trace import region
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import TrainConfig, make_grads_fn
 
@@ -153,22 +154,23 @@ def make_sharded_train_step(cfg, tcfg: TrainConfig, mesh):
         if batch.get("mask") is not None:
             raise ValueError("the sharded step takes no mask: each rank "
                              "normalises by its own rows")
-        with shd.use_sharding(mesh), tp.use_split(params, mesh):
-            loss, metrics, grads = grads_of(params, batch)
-        named = dict(params.named_parameters())
-        with torch.no_grad():
-            shards = {n: g.contiguous() for n, g in grads.items()}
-            del grads
-            keys = list(metrics)
-            vals = data_mean_(torch.stack([loss, *metrics.values()]))
-            loss, metrics = vals[0], dict(zip(keys, vals[1:]))
-            gnorm = global_norm(shards, named, mesh)
-            state = {"step": opt_state["step"],
-                     **{part: {n: t.to_local()
-                               for n, t in opt_state[part].items()}
-                        for part in ("m", "v")}}
-            om = opt.update_({n: p.to_local() for n, p in named.items()},
-                             shards, state, tcfg.optimizer, gnorm)
-        return params, opt_state, {"loss": loss, **metrics, **om}
+        with region("step"):
+            with shd.use_sharding(mesh), tp.use_split(params, mesh):
+                loss, metrics, grads = grads_of(params, batch)
+            named = dict(params.named_parameters())
+            with torch.no_grad():
+                shards = {n: g.contiguous() for n, g in grads.items()}
+                del grads
+                keys = list(metrics)
+                vals = data_mean_(torch.stack([loss, *metrics.values()]))
+                loss, metrics = vals[0], dict(zip(keys, vals[1:]))
+                gnorm = global_norm(shards, named, mesh)
+                state = {"step": opt_state["step"],
+                         **{part: {n: t.to_local()
+                                   for n, t in opt_state[part].items()}
+                            for part in ("m", "v")}}
+                om = opt.update_({n: p.to_local() for n, p in named.items()},
+                                 shards, state, tcfg.optimizer, gnorm)
+            return params, opt_state, {"loss": loss, **metrics, **om}
 
     return train_step

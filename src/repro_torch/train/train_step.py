@@ -9,7 +9,9 @@ in fp32 and applies AdamW (``train/optimizer.py``), as the reference's
 backward by ``cfg.remat_policy`` (``models/transformer.py``).
 ``grad_compression`` is accepted and changes nothing: the reference declares
 it and its step never reads it (ROADMAP queue 3); ``train/sharded.py`` runs
-this step over a mesh.
+this step over a mesh.  While a torch profiler records, each step opens the
+range ``repro_torch.step`` and ``lm_loss`` opens ``repro_torch.loss`` after
+``forward`` (``obs/trace.py``'s ``region``).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.distribution import tensor_parallel as tp
 from repro_torch.models import transformer as T
 from repro_torch.models.common import VOCAB, island_dtype
+from repro_torch.obs.trace import region
 from repro_torch.train import optimizer as opt
 
 @dataclasses.dataclass(frozen=True)
@@ -59,19 +62,21 @@ def lm_loss(params, cfg, batch, z_loss_coef=1e-4, moe_aux_coef=1e-2):
     Returns (total, {"ce", "z_loss", "moe_aux"}) as 0-d fp32 tensors."""
     logits, aux = T.forward(params, cfg, batch["tokens"], batch.get("extra"),
                             with_aux=True)
-    labels = torch.as_tensor(batch["labels"], dtype=torch.int64,
-                             device=logits.device)
-    logits = logits.to(island_dtype(logits.dtype))
-    lse, picked = _lse_and_label_logit(logits, labels, cfg.padded_vocab)
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones_like(labels, dtype=torch.float32)
-    else:
-        mask = torch.as_tensor(mask, dtype=torch.float32, device=logits.device)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    ce = torch.sum((lse - picked) * mask) / denom
-    zl = z_loss_coef * torch.sum(torch.square(lse) * mask) / denom
-    total = ce + zl + moe_aux_coef * aux
+    with region("loss"):
+        labels = torch.as_tensor(batch["labels"], dtype=torch.int64,
+                                 device=logits.device)
+        logits = logits.to(island_dtype(logits.dtype))
+        lse, picked = _lse_and_label_logit(logits, labels, cfg.padded_vocab)
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones_like(labels, dtype=torch.float32)
+        else:
+            mask = torch.as_tensor(mask, dtype=torch.float32,
+                                   device=logits.device)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = torch.sum((lse - picked) * mask) / denom
+        zl = z_loss_coef * torch.sum(torch.square(lse) * mask) / denom
+        total = ce + zl + moe_aux_coef * aux
     return total, {"ce": ce, "z_loss": zl, "moe_aux": aux}
 
 
@@ -131,8 +136,9 @@ def make_train_step(cfg, tcfg: TrainConfig):
     grads_of = make_grads_fn(cfg, tcfg)
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = grads_of(params, batch)
-        om = opt.apply_updates(params, grads, opt_state, tcfg.optimizer)
+        with region("step"):
+            loss, metrics, grads = grads_of(params, batch)
+            om = opt.apply_updates(params, grads, opt_state, tcfg.optimizer)
         return params, opt_state, {"loss": loss, **metrics, **om}
 
     return train_step
@@ -140,7 +146,8 @@ def make_train_step(cfg, tcfg: TrainConfig):
 
 def make_eval_step(cfg, tcfg: TrainConfig):
     def eval_step(params, batch):
-        loss, metrics = lm_loss(params, cfg, batch, tcfg.z_loss_coef,
-                                tcfg.moe_aux_coef)
+        with region("step"):
+            loss, metrics = lm_loss(params, cfg, batch, tcfg.z_loss_coef,
+                                    tcfg.moe_aux_coef)
         return {"loss": loss, **metrics}
     return eval_step
