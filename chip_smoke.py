@@ -233,12 +233,16 @@ Phases, each printing one JSON line:
   train        llama3.2-3b at full width and depth (bf16, pallas_mapped,
                remat "full"), batch 2 of 4096 in 2 microbatches, 4 steps of
                SyntheticLM: 112 sm90 launches a step (forward and
-               recompute), step time, tokens/s, the optimizer's device time
-               beside its byte bound, the step's product bound; the first
-               step against the same step under xla from the same weights
-               and batch; tri_attn's dq, dk, dv bitwise equal to the plain
-               route's at (1, 24, 8, 4096, 128); tri_attn timed at the
-               training shape; at 4 layers on one set of weights, remat
+               recompute) and 56 of the sm90 backward, step time, tokens/s,
+               the optimizer's device time beside its byte bound, the
+               step's product bound; the first step against the same step
+               under xla from the same weights and batch; tri_attn's dq,
+               dk, dv from its backward kernel against the kernel's plain
+               version and the oracle's vjp at (1, 24, 8, 4096, 128),
+               bitwise over two runs, and the backward timed there beside
+               the oracle's vjp, SDPA's backward and its bound (the kernels
+               line's tri_attn_bwd row); tri_attn timed at the training
+               shape; at 4 layers on one set of weights, remat
                "full" against "none", then microbatches 2 against 1 per
                tensor and both against an fp32 witness (a plain-lookup
                control); save, restore and a ResilientLoop with an
@@ -253,7 +257,8 @@ Phases, each printing one JSON line:
                on the sharded step with the weights and moments laid out
                as DTensors: loss, grad norm and every parameter bitwise
                (or within 1e-6 relative), 112 sm90 launches counted by the
-               wrappers and in the profiler's trace, a second step's time
+               wrappers and in the profiler's trace and 56 of the sm90
+               backward counted by its wrapper, a second step's time
                and the peak memory; compressed_psum_mean on the embedding
                gradient against the formula in torch, timed; then
                python -m torch.distributed.run --standalone
@@ -617,6 +622,12 @@ MLA_SEQ = 4096
 #: up-projections swapped (wuk for wuv: the same shapes), a decode step
 #: whose RoPE position is one short.
 MLA_LAYER_RTOL = 3e-2
+#: the sm90 backward kernel's dq, dk, dv at the training shape, max |diff|
+#: over the tensor's max |value|: against its plain version, which rounds P
+#: and dS to bf16 as it does (sums in another order flip a rounding here and
+#: there: one bf16 ulp is 2^-8 of an element), and against the oracle's
+#: fp32 vjp on the same bf16 inputs
+BWD_PLAIN_RTOL, BWD_ORACLE_RTOL = 1e-2, 2e-2
 #: the training path: llama3.2-3b at full width and depth (28 layers,
 #: d_model 3072, GQA 24/8 of 128, d_ff 8192, tied vocab 128,256), bf16,
 #: attn_impl pallas_mapped, remat "full"; batch 2 of 4096 tokens in 2
@@ -625,8 +636,11 @@ TRAIN_ARCH = "llama3.2-3b"
 TRAIN_PARAMS = 3_212_749_824
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES, TRAIN_STEPS = 2, 4096, 2, 4
 #: sm90 launches a step: one per layer per microbatch in the forward and
-#: one more in its remat recompute (the backward is the plain vjp)
+#: one more in its remat recompute (the backward's launches, of the sm90
+#: backward kernel, are counted apart in ATTN_BWD_LAUNCHES)
 TRAIN_LAUNCHES_PER_STEP = 28 * 2 * 2
+#: sm90 backward launches a step: one per layer per microbatch
+TRAIN_BWD_LAUNCHES_PER_STEP = 28 * 2
 #: the same step under xla from the same parameters and batch: loss within
 #: CE_RTOL, grad norm within TRAIN_GNORM_RTOL relative.  The two differ by
 #: the kernel's bf16 P (its logits sit at ~2e-2 of max against xla's, PERF.md
@@ -797,9 +811,10 @@ class Smoke:
         self.sm90_paths = {}           # sm90 launches per main path
         # launches per main path of the map, membership and simt rows
         self.paths = {"map_kernel": {}, "membership_kernel": {},
-                      "tri_attn_simt": {}}
+                      "tri_attn_simt": {}, "tri_attn_bwd": {}}
         self.wkv_paths = {}            # wkv calls per main path
         self.attn_simt_row = {}
+        self.attn_bwd_row = {}
         self.wkv_row = {}
         self.paper_ms = {}
 
@@ -870,6 +885,7 @@ class Smoke:
                 "membership_kernel": self.K.MEMBERSHIP_LAUNCHES,
                 "tri_attn": self.AK.ATTN_LAUNCHES,
                 "tri_attn_sm90": self.AK.ATTN_SM90_LAUNCHES,
+                "tri_attn_bwd": self.AK.ATTN_BWD_LAUNCHES,
                 "wkv": self.WK.WKV_LAUNCHES}
 
     def reset_counts(self) -> None:
@@ -5327,25 +5343,30 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         step = make_train_step(cfg, tcfg)
         state = opt.init_state(params)
-        rows, per_step = [], []
+        rows, per_step, bwd_per_step = [], [], []
         with self._timed_optimizer() as (events, _):
             self.reset_counts()
             for i in range(TRAIN_STEPS):
-                n1 = AK.ATTN_SM90_LAUNCHES
+                n1 = AK.ATTN_SM90_LAUNCHES, AK.ATTN_BWD_LAUNCHES
                 t0 = time.perf_counter()
                 params, state, m = step(params, state, batches[i])
                 self.sync()
                 rows.append({"step_s": time.perf_counter() - t0,
                              **{k: float(v) for k, v in m.items()}})
-                per_step.append(AK.ATTN_SM90_LAUNCHES - n1)
+                per_step.append(AK.ATTN_SM90_LAUNCHES - n1[0])
+                bwd_per_step.append(AK.ATTN_BWD_LAUNCHES - n1[1])
             counts = self.counts()
         self._add_sm90("train", counts)
+        self._add_path("tri_attn_bwd", "train", counts["tri_attn_bwd"])
         peak = torch.cuda.max_memory_allocated() / 1e9
         opt_ms = [a.elapsed_time(b) for a, b in events]
         check(per_step == [TRAIN_LAUNCHES_PER_STEP] * TRAIN_STEPS
               and counts["tri_attn"] == counts["tri_attn_sm90"],
               f"{TRAIN_ARCH}: sm90 launches per step {per_step} (all "
               f"{counts}), want {TRAIN_LAUNCHES_PER_STEP}")
+        check(bwd_per_step == [TRAIN_BWD_LAUNCHES_PER_STEP] * TRAIN_STEPS,
+              f"{TRAIN_ARCH}: sm90 backward launches per step "
+              f"{bwd_per_step}, want {TRAIN_BWD_LAUNCHES_PER_STEP}")
         check(all(math.isfinite(r[k]) for r in rows for k in r),
               f"{TRAIN_ARCH}: a metric is not finite: {rows}")
         check(int(state["step"]) == TRAIN_STEPS, "the optimizer's step")
@@ -5371,7 +5392,9 @@ class Smoke:
         return {"params": n_params, "init_s": init_s, "steps": rows,
                 "step_s_median_after_first": step_s,
                 "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
-                "sm90_launches_per_step": per_step, "main_path": counts,
+                "sm90_launches_per_step": per_step,
+                "backward_launches_per_step": bwd_per_step,
+                "main_path": counts,
                 "peak_gb": peak, "optimizer_ms": opt_ms,
                 "optimizer_bytes": opt_bytes,
                 "optimizer_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3,
@@ -5379,10 +5402,17 @@ class Smoke:
                 "step_device_profile": profile}
 
     def _train_attention_grads(self) -> dict:
-        """tri_attn's gradient at the training shape: the kernel's
-        autograd node runs the plain vjp on its saved q, k, v, so dq, dk
-        and dv equal the plain route's bit for bit; the plain vjp's time
-        (its forward again and four products over S x S in fp32)."""
+        """tri_attn's gradient at the training shape: the autograd node runs
+        the sm90 backward kernel (one ATTN_BWD_LAUNCHES a call), whose dq,
+        dk and dv lie within BWD_PLAIN_RTOL of the kernel's plain version
+        on the same o and L and within BWD_ORACLE_RTOL of the oracle's fp32
+        vjp, and equal themselves bit for bit over two runs.  Timed alone
+        (the graph kept, ``torch.autograd.grad`` again): the node's backward
+        in both modes, the oracle's fp32 vjp that the node ran before it had
+        a kernel (``plain_ms``) and SDPA's backward (``library_ms``, the
+        yardstick only), beside the least time (8·D flop a causal pair:
+        dV, dP, dQ, dK; q, k, v, o, dO read and dq, dk, dv written once).
+        The timing row goes to the kernels line."""
         torch = self.torch
         from repro_torch.kernels.tri_attn.ops import causal_attention
         from repro_torch.kernels.tri_attn.ref import causal_attention_ref
@@ -5395,26 +5425,75 @@ class Smoke:
             1, h, hk, TRAIN_SEQ, d, torch.bfloat16, gen))
         g = torch.randn((1, h, TRAIN_SEQ, d), generator=gen, device="cuda"
                         ).to(torch.bfloat16)
-        n0 = self.AK.ATTN_SM90_LAUNCHES
+        n0 = self.AK.ATTN_SM90_LAUNCHES, self.AK.ATTN_BWD_LAUNCHES
         o = causal_attention(q, k, v, cfg.attn_block, cfg.attn_block,
                              "mapped")
-        check(self.AK.ATTN_SM90_LAUNCHES == n0 + 1, "one sm90 launch")
-        got = torch.autograd.grad(o, (q, k, v), g)
+        check(self.AK.ATTN_SM90_LAUNCHES == n0[0] + 1, "one sm90 launch")
+        got = torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
+        again = torch.autograd.grad(o, (q, k, v), g)
+        check(self.AK.ATTN_BWD_LAUNCHES == n0[1] + 2,
+              "one backward launch a call")
+        with torch.no_grad():
+            o2, lse = self.AK.launch_attention(q, k, v, cfg.attn_block,
+                                               "mapped", lse=True)
+            plain_grads = self.AK.attention_backward_plain(
+                q, k, v, o2, lse, g, cfg.attn_block, "mapped")
 
         def plain():
             ref = causal_attention_ref(q, k.repeat_interleave(g_, 1),
                                        v.repeat_interleave(g_, 1))
             return torch.autograd.grad(ref, (q, k, v), g)
 
+        def rel(a, b):
+            return float((a.float() - b.float()).abs().max()
+                         / b.float().abs().max())
+
         want = plain()
-        same = [torch.equal(a, b) for a, b in zip(got, want)]
-        check(all(same), f"tri_attn's dq, dk, dv differ from the plain "
-              f"route's: {same}")
-        return {"shape": {"B": 1, "H": h, "Hk": hk, "S": TRAIN_SEQ, "D": d,
-                          "dtype": "bfloat16"},
-                "bitwise_equal_dq_dk_dv": same,
-                "plain_forward_and_backward_ms": self.time_ms(plain, reps=3),
-                "plain_backward_flop": 12 * h * TRAIN_SEQ ** 2 * d}
+        vs_plain = [rel(a, b) for a, b in zip(got, plain_grads)]
+        vs_oracle = [rel(a, b) for a, b in zip(got, want)]
+        same = [torch.equal(a, b) for a, b in zip(got, again)]
+        check(max(vs_plain) < BWD_PLAIN_RTOL and max(vs_oracle)
+              < BWD_ORACLE_RTOL and all(same),
+              f"tri_attn's backward: against its plain version {vs_plain}, "
+              f"against the oracle {vs_oracle}, bitwise over two runs {same}")
+        del o, got, again, o2, lse, plain_grads, want
+        self._free()
+
+        def node_ms(out, reps=REPS):
+            return self.time_ms(lambda: torch.autograd.grad(
+                out, (q, k, v), g, retain_graph=True), reps=reps)
+
+        blk = cfg.attn_block
+        ms = {mode: node_ms(causal_attention(q, k, v, blk, blk, mode))
+              for mode in ("mapped", "bounding_box")}
+        plain_ms = node_ms(causal_attention_ref(
+            q, k.repeat_interleave(g_, 1), v.repeat_interleave(g_, 1)),
+            reps=3)
+        library_ms = node_ms(torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        _, fwd = self._attn_bound_ms(1, h, hk, TRAIN_SEQ, d, 2)
+        flop = 2 * fwd["flop"]
+        nbytes = 2 * TRAIN_SEQ * d * (4 * h + 4 * hk)
+        t_ops = flop / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        shape = {"B": 1, "H": h, "Hk": hk, "S": TRAIN_SEQ, "D": d,
+                 "block": blk, "dtype": "bfloat16"}
+        self.attn_bwd_row = {
+            "shape": shape, "ms": ms["mapped"], "bb_ms": ms["bounding_box"],
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "flop": flop, "bytes": nbytes,
+            "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_rel_err_vs_plain": max(vs_plain),
+            "max_rel_err_vs_oracle": max(vs_oracle),
+            "x_bound": ms["mapped"] / bound_ms,
+            "x_library": ms["mapped"] / library_ms}
+        return {"shape": shape,
+                "rel_err_vs_plain": vs_plain, "rel_err_vs_oracle": vs_oracle,
+                "bitwise_over_two_runs": same, "backward_ms": ms,
+                "plain_backward_ms": plain_ms,
+                "library_backward_ms": library_ms, "bound_ms": bound_ms}
 
     def _per_tensor_rel(self, a: dict, b: dict) -> dict:
         """{name: max |a - b| / max |b|} (fp32)."""
@@ -5770,6 +5849,7 @@ class Smoke:
                      and "ta_sm90_kernel" in e.key)
         del prof
         self._add_sm90("sharded_train", counts)
+        self._add_path("tri_attn_bwd", "sharded_train", counts["tri_attn_bwd"])
         got = {k: float(v) for k, v in m2.items()}
         rel = {k: abs(got[k] - single[k]) / max(abs(single[k]), 1e-30)
                for k in single}
@@ -5785,9 +5865,11 @@ class Smoke:
         del want
         check(counts["tri_attn_sm90"] == TRAIN_LAUNCHES_PER_STEP
               and counts["tri_attn"] == counts["tri_attn_sm90"]
+              and counts["tri_attn_bwd"] == TRAIN_BWD_LAUNCHES_PER_STEP
               and traced == TRAIN_LAUNCHES_PER_STEP,
               f"sharded step: sm90 launches {counts}, traced {traced}, want "
-              f"{TRAIN_LAUNCHES_PER_STEP}")
+              f"{TRAIN_LAUNCHES_PER_STEP} and {TRAIN_BWD_LAUNCHES_PER_STEP} "
+              f"backward")
         check(all(r <= SHARDED_RTOL for r in rel.values())
               and param_rel <= SHARDED_RTOL,
               f"sharded step against the single-device step: metrics {rel},"
@@ -6231,7 +6313,10 @@ class Smoke:
         split sweep made) and the examples'; ms, plain_ms and bound_ms are
         per launch over paper_scale's calls.  tri_attn has a row per route:
         sm90 (the LM path, timed at the LM shape) and simt (the block-64
-        forward and the examples, timed at the block-64 forward's shape).
+        forward and the examples, timed at the block-64 forward's shape);
+        tri_attn_bwd is the sm90 route's backward (the train and sharded
+        train steps, timed at llama3.2-3b's training shape; it replaces no
+        TPU kernel: the reference's backward is the oracle's vjp).
         ``launches_by_path`` splits each row's launches by main path."""
         src = "src/repro_torch/kernels/domain_map/csrc/"
         replaces = {"map_kernel": "src/repro/kernels/domain_map/kernel.py:53",
@@ -6261,6 +6346,12 @@ class Smoke:
             "launches": self.launches["tri_attn_simt"],
             "launches_by_path": self.paths["tri_attn_simt"],
             **self.attn_simt_row})
+        rows.append({
+            "name": "tri_attn_bwd", "route": "cuda", "attn_route": "sm90",
+            "source": f"{attn}tri_attn_bwd.cu", "replaces": None,
+            "launches": self.launches["tri_attn_bwd"],
+            "launches_by_path": self.paths["tri_attn_bwd"],
+            **self.attn_bwd_row})
         rows.append({
             "name": "wkv", "route": "cuda",
             "source": "src/repro_torch/kernels/wkv/csrc/wkv.cu",

@@ -73,12 +73,7 @@
 // B*H*C*block*(D+2) fp32 (170 MB at block 128 with G = 8 and at block 64
 // with G = 16, against 1.125 and 2.215 GB for the pair grid), written once
 // and read once by the combine.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#define TA_NEG_INF (-1e30f)
+#include "tri_attn_common.cuh"
 
 constexpr int TA_COMBINE_THREADS = 128;
 
@@ -102,25 +97,6 @@ struct TaArgs {
   int32_t strip;              // G: key blocks a cell
   float scale_log2;           // head_dim^-1/2 * log2(e), on the fp32 scores
 };
-
-// The row of the paper's 2D triangular map: q with T(q) <= t < T(q+1), exact:
-// int64 8t+1, a float64 square-root seed, then a ladder that corrects the
-// seed in both directions until r = isqrt(8t+1).
-__device__ __forceinline__ int64_t ta_tri_row(int64_t t) {
-  const int64_t v = 8 * t + 1;
-  int64_t r = (int64_t)sqrt((double)v);
-  while ((r + 1) * (r + 1) <= v) ++r;
-  while (r * r > v) --r;
-  return (r - 1) / 2;
-}
-
-// The paper's 2D triangular map g(lambda) = (i, j), j <= i (the sm90 route's).
-__device__ __forceinline__ void ta_lam_to_ij(int64_t lam, int32_t* i,
-                                             int32_t* j) {
-  const int64_t ii = ta_tri_row(lam);
-  *i = (int32_t)ii;
-  *j = (int32_t)(lam - ii * (ii + 1) / 2);
-}
 
 // The staircase map lambda -> (i, g) over the cells of strips of G blocks:
 // rows qG .. qG+G-1 each have q+1 strips and start at lambda = G*T(q).

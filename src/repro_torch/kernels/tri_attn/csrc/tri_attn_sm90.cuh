@@ -42,6 +42,11 @@
 //     O += P V is wgmma with A from registers and V as an MN-major B.  At a
 //     row's end O / l is written through o's (b, h, s) strides in bf16.
 //   * GQA: kv head h / (H / Hk) is read in place by the k and v maps.
+//   * Row log-sum-exp.  Where the autograd node asks for it (a.lse not
+//     null: training), the row's end, or the combine for a cut row, also
+//     stores L = m + log2(l) in fp32, the one residual the backward
+//     (tri_attn_bwd.cu) needs beside q, k, v and o; scoring passes null
+//     and stores nothing more.
 //
 // What bounds it on an H100: at the LM path's shape (1, 32 heads, 4 kv
 // heads, 4096, 128) causal attention needs 137.5 GFLOP, 0.139 ms at
@@ -51,10 +56,8 @@
 // warp specialisation, no ping-pong between the warpgroups): each step
 // waits for S, computes P, then waits for P V.  Workspace: 2 pieces per CTA,
 // 2 * n_CTA * 128 * (D + 2) fp32, 17.6 MB at the LM shape.
-#include <cuda.h>   // CUtensorMap and its enums only: libcuda is not
-                    // linked; the runtime hands out cuTensorMapEncodeTiled
+#include "tri_attn_hopper.cuh"
 
-#define TA_SM90_BLK 128
 #define TA_SM90_THREADS 256   // two consumer warpgroups
 
 // Keep in step with ``_Sm90Args`` in kernel.py.
@@ -70,6 +73,9 @@ struct TaSm90Args {
   float* ws_acc;              // (n_cta, 2, 128, D) unnormalized pieces
   float* ws_m;                // (n_cta, 2, 128) running max, log2 domain
   float* ws_l;                // (n_cta, 2, 128) running sum of exp2
+  float* lse;                 // (B, H, S) row log-sum-exp m + log2(l),
+                              // log2 domain; null where no autograd
+                              // node wants it (nothing is stored)
   int32_t batch, heads, kv_heads, seq;
   int32_t nb;                 // seq / 128
   int32_t mode;               // 0 mapped, 1 bounding box
@@ -80,184 +86,8 @@ struct TaSm90Args {
 };
 
 // ---------------------------------------------------------------------------
-// PTX helpers: shared-memory addresses, mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ta_smem(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ta_mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void ta_mbar_expect_tx(uint32_t bar,
-                                                  uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase with the given parity has completed.
-__device__ __forceinline__ void ta_mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 4-D TMA tile load into shared memory, completing on `bar`.
-__device__ __forceinline__ void ta_tma_load(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1); byte
-// offsets are stored in 16-byte units.
-__device__ __forceinline__ uint64_t ta_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void ta_wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void ta_wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void ta_wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving accesses to accumulator registers across
-// an asynchronous wgmma.
-template <int N>
-__device__ __forceinline__ void ta_reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int x = 0; x < N; ++x) asm volatile("" : "+f"(d[x])::"memory");
-}
-
-// D (64 x N fp32, the accumulator layout) += A B, A 64x16 and B 16xN bf16.
-// ss: A and B from shared memory, both K-major.  rs: A from registers (the
-// four bf16x2 of the m64k16 fragment), B MN-major.
-__device__ __forceinline__ void ta_wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void ta_wgmma_rs_n128(float (&d)[64],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-__device__ __forceinline__ void ta_wgmma_rs_n64(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-template <int D>
-__device__ __forceinline__ void ta_wgmma_pv(float (&d)[D / 2],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  if constexpr (D == 128)
-    ta_wgmma_rs_n128(d, a, db, 1);
-  else
-    ta_wgmma_rs_n64(d, a, db, 1);
-}
-
-__device__ __forceinline__ uint32_t ta_pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---------------------------------------------------------------------------
 // the work enumeration
 // ---------------------------------------------------------------------------
-
-__host__ __device__ __forceinline__ int64_t ta_tri(int64_t n) {
-  return n * (n + 1) / 2;
-}
 
 // A step (bh, i, j); ta_advance moves to the next valid step: j++, and past
 // the diagonal to the next row (or the next (b, h)) at j = 0.
@@ -519,6 +349,11 @@ ta_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           *reinterpret_cast<__nv_bfloat162*>(ob + 8 * c + cb) =
               __floats2bfloat162_rn(o[4 * c + 2] / lb, o[4 * c + 3] / lb);
         }
+        if (a.lse != nullptr && (lane & 3) == 0) {
+          float* lr = a.lse + cur.bh * a.seq + (int64_t)cur.i * TA_SM90_BLK;
+          lr[row_a] = m_a + log2f(la);
+          lr[row_a + 8] = m_b + log2f(lb);
+        }
       } else {                                  // a piece: its slot
         const int64_t p = (int64_t)blockIdx.x * 2 + (seg_j0 > 0 ? 0 : 1);
         float* wa = a.ws_acc + (p * TA_SM90_BLK + row_a) * D;
@@ -577,65 +412,14 @@ ta_sm90_combine_kernel(const TaSm90Args a) {
       m = mn;
     }
     o[r * a.o_ss + d] = __float2bfloat16_rn(acc / l);
+    if (a.lse != nullptr && d == 0)
+      a.lse[at.bh * a.seq + (int64_t)at.i * TA_SM90_BLK + r] = m + log2f(l);
   }
 }
 
 // ---------------------------------------------------------------------------
-// host side: tensor maps and the launch
+// host side: the launch
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*TaEncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// Error codes of ta_sm90_launch beside cudaError_t: no
-// cuTensorMapEncodeTiled could be found, or it refused a map
-// (code - CUresult).
-#define TA_ERR_NO_ENCODE (-1)
-#define TA_ERR_ENCODE_BASE (-1000)
-
-static TaEncodeTiled ta_encode_tiled() {
-  static TaEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
-                                                  &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = (TaEncodeTiled)p;
-  }
-  return fn;
-}
-
-// A (B, H, S, D) bf16 view as a 4-D map (D, S, H, B) through its element
-// strides; box (64, 128, 1, 1) with the 128-byte swizzle.
-static int ta_tensor_map(CUtensorMap* map, const void* ptr, int64_t b,
-                         int64_t h, int64_t s, int64_t d, int64_t sb,
-                         int64_t sh, int64_t ss) {
-  const TaEncodeTiled enc = ta_encode_tiled();
-  if (enc == nullptr) return TA_ERR_NO_ENCODE;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)h,
-                              (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, TA_SM90_BLK, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(ptr), dims, strides, box, estr,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TA_ERR_ENCODE_BASE - (int)r;
-}
 
 template <int D>
 static int ta_sm90_run(const TaSm90Args& a, const CUtensorMap& tq,

@@ -16,6 +16,17 @@ before any launch (``attention_route``):
     boundary leaves at most two fp32 pieces per CTA; a short second launch
     merges them in ascending j.  ``stream_grid`` / ``stream_pieces`` are that
     enumeration in Python, ``attention_stream_plain`` its arithmetic.
+    Its backward is a kernel too (``csrc/tri_attn_bwd.cu``, a library of
+    its own, loaded at the first backward): delta = rowsum(dO o), then a
+    key-stationary dK/dV pass that walks the lower triangle by columns on
+    the λ grid (a (b, kv head)'s column of key block j holds H/Hk · (nb - j)
+    cells, GQA summed inside it; mapped through the exact triangular map,
+    BB over the box of columns padded to H/Hk · nb cells), a
+    query-stationary dQ pass on the forward's own row stream, and a combine
+    that adds cut columns' and rows' fp32 pieces in a fixed order, from the
+    row log-sum-exp L the forward stores where the autograd node asks for
+    it.  ``column_grid`` / ``column_pieces`` are the column enumeration,
+    ``attention_stream_backward_plain`` the backward's arithmetic.
   * ``"simt"`` — every other shape (fp32; bf16 at other blocks or head
     dims; ``csrc/tri_attn.cu``): cells are strips of G key blocks — cell
     (bh, i, g) takes q block i against j = gG .. min(i, gG+G-1) with the
@@ -65,6 +76,9 @@ NEG_INF = -1e30
 ATTN_LAUNCHES = 0
 #: the part of ATTN_LAUNCHES that took the sm90 route
 ATTN_SM90_LAUNCHES = 0
+#: launches of the sm90 route's backward (delta, its two passes and their
+#: combine, one launch), counted by ``launch_attention_backward``
+ATTN_BWD_LAUNCHES = 0
 _count_mu = threading.Lock()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -207,13 +221,32 @@ class _Sm90Args(ctypes.Structure):
         ("v", ctypes.c_void_p), ("o", ctypes.c_void_p),
         *[(f"{t}_s{ax}", ctypes.c_int64) for t in "qkvo" for ax in "bhs"],
         ("ws_acc", ctypes.c_void_p), ("ws_m", ctypes.c_void_p),
-        ("ws_l", ctypes.c_void_p),
+        ("ws_l", ctypes.c_void_p), ("lse", ctypes.c_void_p),
         ("batch", ctypes.c_int32), ("heads", ctypes.c_int32),
         ("kv_heads", ctypes.c_int32), ("seq", ctypes.c_int32),
         ("nb", ctypes.c_int32), ("mode", ctypes.c_int32),
         ("steps_per_cta", ctypes.c_int64), ("n_cells", ctypes.c_int64),
         ("n_cta", ctypes.c_int64),
         ("scale_log2", ctypes.c_float),
+    ]
+
+
+class _BwdArgs(ctypes.Structure):
+    """ctypes mirror of ``TaBwdArgs`` in ``csrc/tri_attn_bwd.cu``."""
+
+    _fields_ = [
+        *[(t, ctypes.c_void_p)
+          for t in ("q", "k", "v", "o", "dout", "dq", "dk", "dv")],
+        *[(f"{t}_s{ax}", ctypes.c_int64)
+          for t in ("q", "k", "v", "o", "do", "dq", "dk", "dv")
+          for ax in "bhs"],
+        *[(t, ctypes.c_void_p)
+          for t in ("lse", "delta", "ws_dq", "ws_dk", "ws_dv")],
+        *[(t, ctypes.c_int32)
+          for t in ("batch", "heads", "kv_heads", "seq", "nb", "mode")],
+        ("steps_per_cta", ctypes.c_int64), ("n_cells", ctypes.c_int64),
+        ("n_cta", ctypes.c_int64),
+        ("scale_log2", ctypes.c_float), ("scale", ctypes.c_float),
     ]
 
 
@@ -229,7 +262,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.ta_bwd_launch.argtypes = [ctypes.POINTER(_BwdArgs), ctypes.c_int32,
+                                  ctypes.c_void_p]
+    lib.ta_bwd_launch.restype = ctypes.c_int
+    return lib
+
+
 LIB = build.register(build.Library("tri_attn", CSRC, _bind))
+#: the sm90 route's backward, loaded at its first launch: a process that
+#: builds no autograd node neither builds nor loads it
+LIB_BWD = build.register(build.Library("tri_attn_bwd", CSRC, _bind_bwd))
 
 
 def _require_cuda() -> None:
@@ -262,21 +305,27 @@ def check_shapes(q, k, v, block: int) -> None:
         raise ValueError(f"seq {s} is not a multiple of block {block}")
 
 
+def _check_cuda(**tensors) -> None:
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} is on {t.device}: the kernel takes CUDA "
+                             f"tensors")
+
+
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     block: int, grid_mode: str) -> torch.Tensor:
+                     block: int, grid_mode: str, lse: bool = False):
     """Launch the kernel on the current stream: causal attention of q
     (B, H, S, D) against k, v (B, Hk, S, D), o (B, H, S, D) in q's dtype.
 
     The route follows ``attention_route`` (dtype, block, head_dim); the
     sm90 route takes ``default_steps_per_cta`` cells per CTA on this card's
     SM count.  o is stored (B, S, H, D) in memory, so the model's transpose
-    back to (B, S, H, D) is free."""
+    back to (B, S, H, D) is free.  ``lse=True`` (the sm90 route only)
+    returns (o, L) with L (B, H, S) fp32 the rows' log-sum-exp in the log2
+    domain, the residual ``launch_attention_backward`` takes."""
     _require_cuda()
     check_shapes(q, k, v, block)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
-            raise ValueError(f"{name} is on {t.device}: the kernel takes CUDA "
-                             f"tensors")
+    _check_cuda(q=q, k=k, v=v)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel "
                          f"takes float32 or bfloat16, all alike")
@@ -287,7 +336,12 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"block {block} / head_dim {d}: the kernel takes "
                          f"blocks {BLOCKS} and head dims {HEAD_DIMS}")
     if attention_route(q.dtype, block, d) == "sm90":
-        return _launch_sm90(q, k, v, grid_mode)
+        return _launch_sm90(q, k, v, grid_mode, lse=lse)
+    if lse:
+        raise ValueError(f"the row log-sum-exp comes from the sm90 route "
+                         f"alone (bf16, block {SM90_BLOCK}, head_dim "
+                         f"{SM90_HEAD_DIMS}); got {q.dtype}, block {block}, "
+                         f"head_dim {d}")
     return _launch_simt(q, k, v, block, grid_mode)
 
 
@@ -347,12 +401,14 @@ def sm_count(device: torch.device) -> int:
 def _aligned_strides(t: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
     """t, or a contiguous copy where a TMA map or a 16-byte ``cp.async``
     cannot read it (d not contiguous, a base not 16-byte aligned, a stride
-    not a multiple of 16 bytes); and its (b, h, s) element strides, with
-    any size-1 dimension's stride set to a valid multiple."""
+    not a multiple of 16 bytes or 0, as an expanded gradient's is); and its
+    (b, h, s) element strides, with any size-1 dimension's stride set to a
+    valid multiple."""
     shape, st = t.shape, t.stride()
     per16 = 16 // t.element_size()
     if (st[3] != 1 or t.data_ptr() % 16
-            or any(st[ax] % per16 for ax in range(3) if shape[ax] > 1)):
+            or any(st[ax] % per16 or not st[ax]
+                   for ax in range(3) if shape[ax] > 1)):
         t = t.contiguous()
         st = t.stride()
     return t, [st[ax] if shape[ax] > 1 else math.prod(shape[ax + 1:])
@@ -367,10 +423,11 @@ def _sm90_error(rc: int) -> str:
     return f"cudaError {rc}"
 
 
-def _launch_sm90(q, k, v, grid_mode: str,
-                 steps_per_cta: int | None = None) -> torch.Tensor:
+def _launch_sm90(q, k, v, grid_mode: str, steps_per_cta: int | None = None,
+                 lse: bool = False):
     """The sm90 route on checked inputs; ``steps_per_cta`` (U) defaults to
-    ``default_steps_per_cta`` on this card's SM count."""
+    ``default_steps_per_cta`` on this card's SM count.  With ``lse`` it
+    returns (o, L) and the kernel also stores each row's L."""
     global ATTN_LAUNCHES, ATTN_SM90_LAUNCHES
     b, h, s, d = q.shape
     nb = s // SM90_BLOCK
@@ -388,12 +445,15 @@ def _launch_sm90(q, k, v, grid_mode: str,
     ws = torch.empty(n_acc + 2 * n_row, dtype=torch.float32,
                      device=q.device)
     ws_ptr = ws.data_ptr()
+    rows = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+            if lse else None)
     (q, qs), (k, ks), (v, vs) = (_aligned_strides(t) for t in (q, k, v))
     args = _Sm90Args(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *qs, *ks,
         *vs, *o.stride()[:3], ws_ptr, ws_ptr + 4 * n_acc,
-        ws_ptr + 4 * (n_acc + n_row), b, h, k.shape[1], s, nb,
-        MODES[grid_mode], u, n_cells, n_cta, d ** -0.5 * LOG2E)
+        ws_ptr + 4 * (n_acc + n_row), rows.data_ptr() if lse else None, b, h,
+        k.shape[1], s, nb, MODES[grid_mode], u, n_cells, n_cta,
+        d ** -0.5 * LOG2E)
     rc = build.load(LIB).ta_sm90_launch(ctypes.byref(args), d, _stream())
     if rc != 0:
         raise RuntimeError(f"tri_attn sm90 launch ({grid_mode}, head_dim {d},"
@@ -401,7 +461,67 @@ def _launch_sm90(q, k, v, grid_mode: str,
     with _count_mu:
         ATTN_LAUNCHES += 1
         ATTN_SM90_LAUNCHES += 1
-    return o
+    return (o, rows) if lse else o
+
+
+def launch_attention_backward(q, k, v, o, lse, do, grid_mode: str):
+    """The sm90 route's backward on the current stream: (dq, dk, dv) of
+    causal attention in the inputs' dtype, from q (B, H, S, D), k, v
+    (B, Hk, S, D), the forward's o and L (``launch_attention(...,
+    lse=True)``) and dO (B, H, S, D).  It takes only the sm90 route's case
+    (bf16, block 128, head_dim 64 or 128) and raises on any other; both
+    passes take the forward's U on this card's SM count.  dq, dk, dv are
+    stored (B, S, heads, D) in memory, as o is."""
+    global ATTN_BWD_LAUNCHES
+    _require_cuda()
+    check_shapes(q, k, v, SM90_BLOCK)
+    _check_cuda(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    b, h, s, d = q.shape
+    hk = k.shape[1]
+    if (attention_route(q.dtype, SM90_BLOCK, d) != "sm90"
+            or {k.dtype, v.dtype, o.dtype, do.dtype} != {q.dtype}):
+        raise ValueError(f"the sm90 backward takes bf16 q, k, v, o and dO at "
+                         f"head_dim {SM90_HEAD_DIMS}; got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}, {o.dtype}, {do.dtype} at "
+                         f"head_dim {d}")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must "
+                         f"be q's {tuple(q.shape)}")
+    if (lse.shape != (b, h, s) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f"L must be ({b}, {h}, {s}) contiguous float32; got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if grid_mode not in MODES:
+        raise ValueError(f"grid_mode {grid_mode!r}")
+    nb = s // SM90_BLOCK
+    u = default_steps_per_cta(b * h, nb, sm_count(q.device))
+    n_cells = stream_cells(b * h, nb, grid_mode)
+    n_cta = -(-n_cells // u)
+    dq = torch.empty((b, s, h, d), dtype=q.dtype,
+                     device=q.device).permute(0, 2, 1, 3)
+    dk, dv = (torch.empty((b, s, hk, d), dtype=q.dtype,
+                          device=q.device).permute(0, 2, 1, 3)
+              for _ in range(2))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    n_ws = n_cta * 2 * SM90_BLOCK * d
+    ws = torch.empty(3 * n_ws, dtype=torch.float32, device=q.device)
+    ws_ptr = ws.data_ptr()
+    (q, qs), (k, ks), (v, vs), (o, os_), (do, ds) = (
+        _aligned_strides(t) for t in (q, k, v, o, do))
+    args = _BwdArgs(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *qs,
+        *ks, *vs, *os_, *ds, *dq.stride()[:3], *dk.stride()[:3],
+        *dv.stride()[:3], lse.data_ptr(), delta.data_ptr(), ws_ptr,
+        ws_ptr + 4 * n_ws, ws_ptr + 8 * n_ws, b, h, hk, s, nb,
+        MODES[grid_mode], u, n_cells, n_cta, d ** -0.5 * LOG2E, d ** -0.5)
+    rc = build.load(LIB_BWD).ta_bwd_launch(ctypes.byref(args), d, _stream())
+    if rc != 0:
+        raise RuntimeError(f"tri_attn sm90 backward launch ({grid_mode}, "
+                           f"head_dim {d}, U {u}) failed: {_sm90_error(rc)}")
+    with _count_mu:
+        ATTN_BWD_LAUNCHES += 1
+    return dq, dk, dv
 
 
 def lam_to_ig_device(lam0: int, n: int, strip: int = 1
@@ -422,10 +542,11 @@ def lam_to_ig_device(lam0: int, n: int, strip: int = 1
 
 
 def reset_launch_counts() -> None:
-    global ATTN_LAUNCHES, ATTN_SM90_LAUNCHES
+    global ATTN_LAUNCHES, ATTN_SM90_LAUNCHES, ATTN_BWD_LAUNCHES
     with _count_mu:
         ATTN_LAUNCHES = 0
         ATTN_SM90_LAUNCHES = 0
+        ATTN_BWD_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -451,15 +572,66 @@ def stream_ctas(n_bh: int, nb: int, steps_per_cta: int, mode: str) -> int:
     return -(-stream_cells(n_bh, nb, mode) // steps_per_cta)
 
 
-def _cell(g: int, nb: int, mode: str) -> tuple[int, int, int]:
-    """Cell γ as (bh, i, j), exact; in BB j may exceed i (discarded)."""
+def _cell(g: int, nb: int, mode: str, group: int = 1
+          ) -> tuple[int, int, int]:
+    """Cell γ of a stream of stairs whose row r holds group·(r + 1) cells,
+    as (stair, r, p), exact; in BB p may pass the row's end (discarded).
+    At group 1 it is (bh, i, j)."""
     if mode == "mapped":
-        tri = tri_grid_size(nb)
-        bh, lam = divmod(g, tri)
-        i = (math.isqrt(8 * lam + 1) - 1) // 2
-        return bh, i, lam - tri_grid_size(i)
-    bh, r = divmod(g, nb * nb)
-    return bh, r // nb, r % nb
+        per = group * tri_grid_size(nb)
+        st, lam = divmod(g, per)
+        r = (math.isqrt(8 * (lam // group) + 1) - 1) // 2
+        return st, r, lam - group * tri_grid_size(r)
+    width = group * nb
+    st, rem = divmod(g, width * nb)
+    return st, rem // width, rem % width
+
+
+def _stair_grid(n_st: int, nb: int, steps_per_cta: int, mode: str,
+                group: int, device=None):
+    """``stream_grid`` over stairs whose row r holds group·(r + 1) cells:
+    mapped, γ's stair is γ // (group·T(nb)) and λ = γ mod group·T(nb) gives
+    r = tri_row(λ // group) and p = λ - group·T(r); BB pads every row to
+    group·nb cells and discards p >= group·(r + 1).  Int64 (stair, r, p)
+    and ``valid``, each (n_cta, U)."""
+    u = steps_per_cta
+    n_cells = stream_cells(n_st * group, nb, mode)
+    n_cta = -(-n_cells // u)
+    g = torch.arange(n_cta * u, device=device, dtype=torch.int64)
+    inside = g < n_cells
+    g = g.clamp(max=n_cells - 1)
+    if mode == "mapped":
+        per = group * tri_grid_size(nb)
+        st, lam = g // per, g % per
+        r, _ = lam_to_ij(torch.div(lam, group, rounding_mode="floor"))
+        p = lam - group * ((r * (r + 1)) >> 1)
+    else:
+        width = group * nb
+        st, rem = g // (width * nb), g % (width * nb)
+        r, p = rem // width, rem % width
+    valid = inside & (p < group * (r + 1))
+    shape = (n_cta, u)
+    return st.view(shape), r.view(shape), p.view(shape), valid.view(shape)
+
+
+def _stair_pieces(n_st: int, nb: int, steps_per_cta: int, mode: str,
+                  group: int) -> list[tuple[int, int, list[tuple[int, int]]]]:
+    """``stream_pieces`` over ``_stair_grid``'s stairs: (stair, r, pieces)."""
+    u = steps_per_cta
+    n_cells = stream_cells(n_st * group, nb, mode)
+    rows = []
+    for c in range(1, -(-n_cells // u)):
+        st, r, p = _cell(c * u, nb, mode, group)
+        n = group * (r + 1)
+        if p == 0 or p >= n:
+            continue
+        row0 = c * u - p
+        c0, c1 = row0 // u, (row0 + n - 1) // u
+        if c0 != c - 1:
+            continue
+        rows.append((st, r, [(c0, 1)] + [(x, 0) for x in range(c0 + 1,
+                                                               c1 + 1)]))
+    return rows
 
 
 def stream_grid(n_bh: int, nb: int, steps_per_cta: int, mode: str,
@@ -468,22 +640,7 @@ def stream_grid(n_bh: int, nb: int, steps_per_cta: int, mode: str,
     order.  Returns int64 (bh, i, j) and a bool ``valid``, each
     (n_cta, U): cell (c, t) is γ = cU + t, valid where γ < the cell count
     and j <= i (BB discards the rest)."""
-    u = steps_per_cta
-    n_cells = stream_cells(n_bh, nb, mode)
-    n_cta = -(-n_cells // u)
-    g = torch.arange(n_cta * u, device=device, dtype=torch.int64)
-    inside = g < n_cells
-    g = g.clamp(max=n_cells - 1)
-    if mode == "mapped":
-        tri = tri_grid_size(nb)
-        bh = g // tri
-        i, j = lam_to_ij(g % tri)
-    else:
-        bh, r = g // (nb * nb), g % (nb * nb)
-        i, j = r // nb, r % nb
-    valid = inside & (j <= i)
-    shape = (n_cta, u)
-    return (bh.view(shape), i.view(shape), j.view(shape), valid.view(shape))
+    return _stair_grid(n_bh, nb, steps_per_cta, mode, 1, device)
 
 
 def stream_pieces(n_bh: int, nb: int, steps_per_cta: int, mode: str
@@ -493,20 +650,33 @@ def stream_pieces(n_bh: int, nb: int, steps_per_cta: int, mode: str
     cell cU has 0 < j <= i and the row's first cell lies in CTA c - 1.  The
     row's first CTA holds its piece in slot 1 (it starts at j = 0), every
     later CTA in slot 0 (it starts at j > 0)."""
-    u = steps_per_cta
-    n_cells = stream_cells(n_bh, nb, mode)
-    rows = []
-    for c in range(1, -(-n_cells // u)):
-        bh, i, j = _cell(c * u, nb, mode)
-        if j == 0 or j > i:
-            continue
-        row0 = c * u - j
-        c0, c1 = row0 // u, (row0 + i) // u
-        if c0 != c - 1:
-            continue
-        rows.append((bh, i, [(c0, 1)] + [(x, 0) for x in range(c0 + 1,
-                                                               c1 + 1)]))
-    return rows
+    return _stair_pieces(n_bh, nb, steps_per_cta, mode, 1)
+
+
+def column_grid(b: int, h: int, hk: int, nb: int, steps_per_cta: int,
+                mode: str, device=None):
+    """The backward's dK/dV pass: the columns of the lower triangle as
+    stairs, one a (b, kv head); row r of a stair is the column of key block
+    j = nb - 1 - r, holding G·(r + 1) cells (G = H/Hk): q head g of the
+    group against q block i >= j, g major, i ascending.  CTA c takes the
+    cells γ in [cU, (c+1)U).  Returns int64 (bhk, bh, i, j) — bhk = b·Hk +
+    kv head, bh = b·H + q head — and ``valid``, each (n_cta, U)."""
+    group = h // hk
+    st, r, p, valid = _stair_grid(b * hk, nb, steps_per_cta, mode, group,
+                                  device)
+    p = torch.minimum(p, group * (r + 1) - 1)        # discarded cells
+    j = nb - 1 - r
+    bh = (st // hk) * h + (st % hk) * group + p // (r + 1)
+    return st, bh, j + p % (r + 1), j, valid
+
+
+def column_pieces(b: int, h: int, hk: int, nb: int, steps_per_cta: int,
+                  mode: str) -> list[tuple[int, int, list[tuple[int, int]]]]:
+    """The columns that CTA boundaries cut, as (bhk, j, [(cta, slot), ...])
+    in the column's order, found as the combine launch finds them (the
+    rule of ``stream_pieces``)."""
+    return [(st, nb - 1 - r, pieces) for st, r, pieces in _stair_pieces(
+        b * hk, nb, steps_per_cta, mode, h // hk)]
 
 
 # ---------------------------------------------------------------------------
@@ -514,16 +684,24 @@ def stream_pieces(n_bh: int, nb: int, steps_per_cta: int, mode: str
 # ---------------------------------------------------------------------------
 
 
+def _plain_steps_per_cta(q: torch.Tensor, block: int) -> int:
+    return default_steps_per_cta(q.shape[0] * q.shape[1], q.shape[2] // block,
+                                 sm_count(q.device))
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    block: int, grid_mode: str) -> torch.Tensor:
+                    block: int, grid_mode: str, lse: bool = False):
     """The plain version of the route the card takes for these shapes, with
-    the card's CTA grid (an H100's where the tensors lie on the CPU)."""
+    the card's CTA grid (an H100's where the tensors lie on the CPU).
+    ``lse=True`` (the sm90 route only) returns (o, L), as
+    ``launch_attention`` does."""
     check_shapes(q, k, v, block)
     if attention_route(q.dtype, block, q.shape[3]) == "sm90":
-        nb = q.shape[2] // block
-        u = default_steps_per_cta(q.shape[0] * q.shape[1], nb,
-                                  sm_count(q.device))
-        return attention_stream_plain(q, k, v, block, u, grid_mode)
+        return attention_stream_plain(q, k, v, block,
+                                      _plain_steps_per_cta(q, block),
+                                      grid_mode, lse)
+    if lse:
+        raise ValueError("the row log-sum-exp comes from the sm90 route alone")
     nb = q.shape[2] // block
     return attention_pairs_plain(
         q, k, v, block, default_strip(q.shape[0] * q.shape[1], nb,
@@ -531,8 +709,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_stream_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           block: int, steps_per_cta: int,
-                           grid_mode: str) -> torch.Tensor:
+                           block: int, steps_per_cta: int, grid_mode: str,
+                           lse: bool = False):
     """Plain torch version of the sm90 route's arithmetic, on q's device:
     ``stream_grid``'s CTAs walk their cells in step (all CTAs' t-th cell at
     once), each carrying the online softmax in the log2 domain along a row —
@@ -542,7 +720,8 @@ def attention_stream_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs are bf16, as the kernel's tensor-core product takes it.  A row
     that ends in its CTA writes acc / l; the pieces of a cut row go to their
     CTA's slot and are merged as ``stream_pieces`` lists them.  GQA reads kv
-    head h // (H/Hk).  Returns o (B, H, S, D) in q's dtype."""
+    head h // (H/Hk).  Returns o (B, H, S, D) in q's dtype, and with ``lse``
+    also L = m + log2(l) (B, H, S) fp32, as the kernel stores it."""
     check_shapes(q, k, v, block)
     b, h, s, d = q.shape
     hk = k.shape[1]
@@ -567,6 +746,7 @@ def attention_stream_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.zeros((n_cta, block, d), dtype=f32, device=dev)
     seg_j0 = torch.zeros(n_cta, dtype=torch.int64, device=dev)
     out = torch.empty((n_bh, nb, block, d), dtype=f32, device=dev)
+    rows = torch.empty((n_bh, nb, block), dtype=f32, device=dev)
     ws_acc = torch.zeros((n_cta, 2, block, d), dtype=f32, device=dev)
     ws_m = torch.zeros((n_cta, 2, block), dtype=f32, device=dev)
     ws_l = torch.zeros((n_cta, 2, block), dtype=f32, device=dev)
@@ -597,6 +777,7 @@ def attention_stream_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         whole = (seg_j0[ce] == 0) & (jt[end] == ie)
         cw = ce[whole]
         out[be[whole], ie[whole]] = acc[cw] / lsum[cw][..., None]
+        rows[be[whole], ie[whole]] = m[cw] + torch.log2(lsum[cw])
         cp = ce[~whole]
         slot = (seg_j0[cp] == 0).to(torch.int64)
         ws_acc[cp, slot], ws_m[cp, slot], ws_l[cp, slot] = \
@@ -614,7 +795,143 @@ def attention_stream_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ar = ar * alpha[:, None] + ws_acc[cta, slot] * beta[:, None]
             mr = mn
         out[row_bh, row_i] = ar / lr[:, None]
-    return out.reshape(b, h, s, d).to(q.dtype)
+        rows[row_bh, row_i] = mr + torch.log2(lr)
+    o = out.reshape(b, h, s, d).to(q.dtype)
+    return (o, rows.reshape(b, h, s)) if lse else o
+
+
+def attention_backward_plain(q, k, v, o, lse, do, block: int,
+                             grid_mode: str):
+    """The plain version of the sm90 route's backward with the card's CTA
+    grid (an H100's where the tensors lie on the CPU)."""
+    return attention_stream_backward_plain(
+        q, k, v, o, lse, do, block, _plain_steps_per_cta(q, block),
+        grid_mode)
+
+
+def _ends(valid: torch.Tensor):
+    """Each CTA's first and last valid slot t."""
+    u = valid.shape[1]
+    return (valid.to(torch.int8).argmax(1),
+            u - 1 - valid.flip(1).to(torch.int8).argmax(1))
+
+
+def attention_stream_backward_plain(q, k, v, o, lse, do, block: int,
+                                    steps_per_cta: int, grid_mode: str):
+    """Plain torch version of the sm90 route's backward arithmetic, on q's
+    device, at U = ``steps_per_cta``: delta = rowsum(dO o) in fp32; P =
+    2^(q k^T·D^-1/2·log2 e - L) with the causal mask where j == i; dS =
+    P (dP - delta), dP = dO v^T.  The dK/dV pass walks ``column_grid``'s
+    CTAs in step, dV += P^T dO and dK += dS^T q along each column segment;
+    the dQ pass walks ``stream_grid``'s, dQ += dS k along each row segment.
+    P and dS are rounded to bf16 before the products that take them when the
+    inputs are bf16, as the kernel's tensor cores take them.  A segment that
+    is a whole column (row) writes its gradient; the pieces of a cut one go
+    to their CTA's slot and are added as ``column_pieces``
+    (``stream_pieces``) lists them.  dQ and dK carry D^-1/2 once, at the
+    end.  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    check_shapes(q, k, v, block)
+    b, h, s, d = q.shape
+    hk = k.shape[1]
+    group = h // hk
+    nb = s // block
+    n_bh = b * h
+    dev = q.device
+    f32 = torch.float32
+    u = steps_per_cta
+    qb = q.to(f32).reshape(n_bh, nb, block, d)
+    dob = do.to(f32).reshape(n_bh, nb, block, d)
+    kb = k.to(f32).reshape(b * hk, nb, block, d)
+    vb = v.to(f32).reshape(b * hk, nb, block, d)
+    lb = lse.to(f32).reshape(n_bh, nb, block)
+    delta = (do.to(f32) * o.to(f32)).sum(-1).reshape(n_bh, nb, block)
+    scale = torch.tensor(d ** -0.5, dtype=f32).item()
+    scale_log2 = torch.tensor(d ** -0.5 * LOG2E, dtype=f32).item()
+
+    def rnd(x):
+        return x.to(torch.bfloat16).to(f32) if q.dtype == torch.bfloat16 \
+            else x
+
+    pos = torch.arange(block, device=dev)
+    above = pos[None, :] > pos[:, None]              # key after query
+
+    # the dQ pass, on the forward's row stream
+    bh, i, j, valid = stream_grid(n_bh, nb, u, grid_mode, dev)
+    n_cta = valid.shape[0]
+    ctas = torch.arange(n_cta, device=dev)
+    first, last = _ends(valid)
+    acc = torch.zeros((n_cta, block, d), dtype=f32, device=dev)
+    seg0 = torch.zeros(n_cta, dtype=torch.int64, device=dev)
+    ws = torch.zeros((n_cta, 2, block, d), dtype=f32, device=dev)
+    dq = torch.empty((n_bh, nb, block, d), dtype=f32, device=dev)
+    for t in range(u):
+        c = ctas[valid[:, t]]
+        if c.numel() == 0:
+            continue
+        bt, it, jt = bh[c, t], i[c, t], j[c, t]
+        new = (jt == 0) | (first[c] == t)
+        acc[c[new]] = 0.0
+        seg0[c[new]] = jt[new]
+        kv = (bt // h) * hk + (bt % h) // group
+        sc = torch.einsum("nrd,ncd->nrc", qb[bt, it], kb[kv, jt])
+        p = torch.exp2(sc * scale_log2 - lb[bt, it][..., None])
+        p = torch.where((it == jt)[:, None, None] & above, 0.0, p)
+        dp = torch.einsum("nrd,ncd->nrc", dob[bt, it], vb[kv, jt])
+        ds = p * (dp - delta[bt, it][..., None])
+        acc[c] += torch.einsum("nrc,ncd->nrd", rnd(ds), kb[kv, jt])
+        end = (jt == it) | (last[c] == t)
+        ce, be, ie = c[end], bt[end], it[end]
+        whole = (seg0[ce] == 0) & (jt[end] == ie)
+        dq[be[whole], ie[whole]] = acc[ce[whole]] * scale
+        cp = ce[~whole]
+        ws[cp, (seg0[cp] == 0).to(torch.int64)] = acc[cp]
+    for row_bh, row_i, pieces in stream_pieces(n_bh, nb, u, grid_mode):
+        dq[row_bh, row_i] = sum(ws[c, x] for c, x in pieces) * scale
+
+    # the dK/dV pass, on the column stream
+    bhk, bh, i, j, valid = column_grid(b, h, hk, nb, u, grid_mode, dev)
+    n_cta = valid.shape[0]
+    ctas = torch.arange(n_cta, device=dev)
+    first, last = _ends(valid)
+    pos_in = (i - j) + ((bh % h) % group) * (nb - j)  # p of the column
+    acc_k = torch.zeros((n_cta, block, d), dtype=f32, device=dev)
+    acc_v = torch.zeros((n_cta, block, d), dtype=f32, device=dev)
+    seg0 = torch.zeros(n_cta, dtype=torch.int64, device=dev)
+    ws_k = torch.zeros((n_cta, 2, block, d), dtype=f32, device=dev)
+    ws_v = torch.zeros((n_cta, 2, block, d), dtype=f32, device=dev)
+    dk = torch.empty((b * hk, nb, block, d), dtype=f32, device=dev)
+    dv = torch.empty((b * hk, nb, block, d), dtype=f32, device=dev)
+    for t in range(u):
+        c = ctas[valid[:, t]]
+        if c.numel() == 0:
+            continue
+        st, bt, it, jt, pt = (x[c, t] for x in (bhk, bh, i, j, pos_in))
+        new = (pt == 0) | (first[c] == t)
+        acc_k[c[new]] = 0.0
+        acc_v[c[new]] = 0.0
+        seg0[c[new]] = pt[new]
+        sct = torch.einsum("nkd,nqd->nkq", kb[st, jt], qb[bt, it])
+        p = torch.exp2(sct * scale_log2 - lb[bt, it][:, None, :])
+        p = torch.where((it == jt)[:, None, None] & above.T, 0.0, p)
+        acc_v[c] += torch.einsum("nkq,nqd->nkd", rnd(p), dob[bt, it])
+        dpt = torch.einsum("nkd,nqd->nkq", vb[st, jt], dob[bt, it])
+        dst = p * (dpt - delta[bt, it][:, None, :])
+        acc_k[c] += torch.einsum("nkq,nqd->nkd", rnd(dst), qb[bt, it])
+        end = (pt == group * (nb - jt) - 1) | (last[c] == t)
+        ce, se, je = c[end], st[end], jt[end]
+        whole = (seg0[ce] == 0) & (pt[end] == group * (nb - je) - 1)
+        cw = ce[whole]
+        dk[se[whole], je[whole]] = acc_k[cw] * scale
+        dv[se[whole], je[whole]] = acc_v[cw]
+        cp = ce[~whole]
+        slot = (seg0[cp] == 0).to(torch.int64)
+        ws_k[cp, slot], ws_v[cp, slot] = acc_k[cp], acc_v[cp]
+    for col_bhk, col_j, pieces in column_pieces(b, h, hk, nb, u, grid_mode):
+        dk[col_bhk, col_j] = sum(ws_k[c, x] for c, x in pieces) * scale
+        dv[col_bhk, col_j] = sum(ws_v[c, x] for c, x in pieces)
+    return (dq.reshape(b, h, s, d).to(q.dtype),
+            dk.reshape(b, hk, s, d).to(k.dtype),
+            dv.reshape(b, hk, s, d).to(v.dtype))
 
 
 def attention_pairs_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,8 +2,13 @@
 
 ``causal_attention(q, k, v)`` takes (batch, heads, seq, head_dim), with
 ``heads`` a multiple of k's and v's (GQA: each kv head serves its group, read
-in place), runs the forward, and differentiates through the plain oracle
-(``torch.autograd.Function``), as the reference's ``custom_vjp`` does.
+in place), runs the forward, and differentiates through one autograd node,
+``_CausalAttention``.  Its backward, where the forward took the sm90 route
+(bf16, block 128, head_dim 64 or 128), is the sm90 backward kernel
+(``kernel.launch_attention_backward``) from q, k, v, o and the rows'
+log-sum-exp that the forward then also stores; on every other route it is
+the plain oracle's vjp, as the reference's ``custom_vjp`` is.  The choice
+is made from the inputs' dtype and shape alone.
 
 ``interpret=False`` launches the CUDA kernel on CUDA tensors, by the route
 ``kernel.attention_route`` picks (``"sm90"`` for bf16, block 128, head_dim
@@ -11,19 +16,22 @@ in place), runs the forward, and differentiates through the plain oracle
 or when a launch fails; ``interpret=True`` runs, on CPU tensors, the plain
 version of the route the card would take (``attention_stream_plain`` with
 an H100's CTA grid, or ``attention_pairs_plain`` with an H100's strip
-length).  Nothing falls back from one to the other.
+length), and for the sm90 route's backward ``attention_backward_plain``.
+Nothing falls back from one to the other.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.tri_attn.kernel import (  # noqa: F401
-    MODES, attention_plain, launch_attention, tri_grid_size,
+    MODES, SM90_BLOCK, attention_backward_plain, attention_plain,
+    attention_route, launch_attention, launch_attention_backward,
+    tri_grid_size,
 )
 from repro_torch.kernels.tri_attn.ref import causal_attention_ref
 
 
-def _forward(q, k, v, block_q, block_k, grid_mode, interpret):
+def _forward(q, k, v, block_q, block_k, grid_mode, interpret, lse=False):
     if block_q != block_k:
         raise ValueError("the triangular block space needs square blocks")
     if grid_mode not in MODES:
@@ -33,11 +41,11 @@ def _forward(q, k, v, block_q, block_k, grid_mode, interpret):
         if devices != {"cpu"}:
             raise ValueError("interpret=True runs the plain version on CPU "
                              f"tensors; these are on {sorted(devices)}")
-        return attention_plain(q, k, v, block_q, grid_mode)
+        return attention_plain(q, k, v, block_q, grid_mode, lse)
     if devices != {"cuda"}:
         raise ValueError("the tri_attn kernel takes CUDA tensors; pass "
                          "interpret=True to run its plain version on the CPU")
-    return launch_attention(q, k, v, block_q, grid_mode)
+    return launch_attention(q, k, v, block_q, grid_mode, lse)
 
 
 def _repeat_kv(t, groups):
@@ -47,11 +55,28 @@ def _repeat_kv(t, groups):
 class _CausalAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, block_q, block_k, grid_mode, interpret):
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, block_q, block_k, grid_mode, interpret)
+        ctx.sm90 = (block_q == block_k and attention_route(
+            q.dtype, block_q, q.shape[-1]) == "sm90")
+        if not ctx.sm90:
+            ctx.save_for_backward(q, k, v)
+            return _forward(q, k, v, block_q, block_k, grid_mode, interpret)
+        o, lse = _forward(q, k, v, block_q, block_k, grid_mode, interpret,
+                          lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.grid_mode, ctx.interpret = grid_mode, interpret
+        return o
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.sm90:
+            q, k, v, o, lse = ctx.saved_tensors
+            if ctx.interpret:
+                grads = attention_backward_plain(q, k, v, o, lse, g,
+                                                 SM90_BLOCK, ctx.grid_mode)
+            else:
+                grads = launch_attention_backward(q, k, v, o, lse, g,
+                                                  ctx.grid_mode)
+            return (*grads, None, None, None, None)
         q, k, v = ctx.saved_tensors
         groups = q.shape[1] // k.shape[1]
         with torch.enable_grad():

@@ -24,7 +24,7 @@ PROBE = textwrap.dedent("""
     from repro_torch.kernels.tri_attn import kernel as attn_kernel
     from repro_torch.kernels.wkv import kernel as wkv_kernel
     assert set(build.LIBRARIES) == {"map_kernel", "membership_kernel",
-                                    "tri_attn", "wkv"}
+                                    "tri_attn", "tri_attn_bwd", "wkv"}
     assert attn_kernel.ATTN_LAUNCHES == 0
     assert wkv_kernel.WKV_LAUNCHES == 0
     spec = importlib.util.spec_from_file_location("chip_smoke", CHIP_SMOKE)

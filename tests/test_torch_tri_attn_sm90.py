@@ -3,10 +3,14 @@ CPU: its plain version ``attention_stream_plain`` against the JAX package's
 interpret-mode ``causal_attention`` and its oracle ``causal_attention_ref``
 (both grid modes, GQA, several cells per CTA), the work enumeration and the
 piece bookkeeping that the CUDA kernel and its combine launch follow, the
-route choice, and the route raising where there is no card.  Inputs are
-made by numpy from a seed."""
+route choice, and the route raising where there is no card; the route's
+backward, ``attention_stream_backward_plain``, against jax.grad of the
+reference's custom_vjp, the column enumeration of its dK/dV pass, and the
+oracle's vjp kept off the route.  Inputs are made by numpy from a seed."""
 import functools
+import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from repro.kernels.tri_attn.ref import (
 )
 from repro_torch.kernels.tri_attn import kernel
 from repro_torch.kernels.tri_attn.ops import causal_attention
+from repro_torch.kernels.tri_attn.ref import causal_attention_ref
 
 #: fp32: the reference kernel's own tolerance.  bf16: the sm90 route rounds
 #: P to bf16 before P·V (the tensor cores' input), where the reference keeps
@@ -266,3 +271,187 @@ def test_autograd_node_only_where_a_gradient_is_wanted(grad):
     if grad:
         got.float().sum().backward()
         assert q.grad is not None and torch.isfinite(q.grad.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# the backward (sm90 route): its plain version and the column enumeration
+# ---------------------------------------------------------------------------
+
+#: (B, H, Hk, S, D) and two U: one that cuts columns and rows across CTAs,
+#: and one above a (b, kv head)'s cells; the entry point runs an H100's U
+BWD_CASES = {
+    "gqa1_b2_d64": ((2, 2, 2, 256, 64), (1, 5)),
+    "gqa2_d128": ((1, 4, 2, 384, 128), (2, 29)),
+    "gqa8_d128": ((1, 8, 1, 256, 128), (7, 40)),
+}
+#: max |diff| over the tensor's max |value|, against jax.grad of the
+#: reference: fp32, the same arithmetic in another order; bf16, P and dS
+#: rounded to bf16 before their products (the reference keeps fp32) and
+#: dq, dk, dv once in each
+BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_reference(case, dtype):
+    """Inputs, dO and jax.grad of the reference's custom_vjp (its vjp is the
+    jnp oracle); GQA as the reference takes it, k and v repeated to every q
+    head (in fp32, so the group's sum is rounded once)."""
+    (b, h, hk, s, d), _ = BWD_CASES[case]
+    arrays = _inputs(11, b, h, hk, s, d)
+    ga = np.random.default_rng(12).standard_normal((b, h, s, d)).astype(
+        np.float32)
+    jdt, tdt = DTYPES[dtype]
+    g = jnp.asarray(ga).astype(jdt)
+
+    def loss(q, k, v):
+        kk, vv = (jnp.repeat(t.astype(jnp.float32), h // hk, axis=1)
+                  .astype(t.dtype) for t in (k, v))
+        out = ref_causal_attention(q, kk, vv, 128, 128, "mapped", True)
+        return (out.astype(jnp.float32) * g.astype(jnp.float32)).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a).astype(jdt) for a in arrays))
+    return ([torch.from_numpy(a).to(tdt) for a in arrays],
+            torch.from_numpy(ga).to(tdt), [_np(w) for w in want])
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("mode", MODES)
+def test_backward_plain_matches_jax_grad(case, dtype, mode):
+    """``attention_stream_backward_plain`` at U values that cut columns and
+    rows and at one above a (b, kv head), and the entry point's backward
+    (the plain version at an H100's U), against jax.grad of the reference;
+    the forward's L against the scores' logsumexp, its o unchanged by
+    asking for L."""
+    (b, h, hk, s, d), us = BWD_CASES[case]
+    (q, k, v), g, want = _bwd_reference(case, dtype)
+    for u in us:
+        pieces = kernel.column_pieces(b, h, hk, s // 128, u, mode)
+        if u == us[0]:
+            assert pieces and kernel.stream_pieces(b * h, s // 128, u, mode)
+        o, lse = kernel.attention_stream_plain(q, k, v, 128, u, mode, True)
+        assert torch.equal(o, kernel.attention_stream_plain(q, k, v, 128, u,
+                                                            mode))
+        got = kernel.attention_stream_backward_plain(q, k, v, o, lse, g, 128,
+                                                     u, mode)
+        for t, w in zip(got, want):
+            assert t.dtype == q.dtype
+            assert np.abs(_np(t) - w).max() <= BWD_TOL[dtype] * np.abs(w).max()
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                      k.float().repeat_interleave(h // hk, 1)) * d ** -0.5
+    sc.masked_fill_(~torch.ones(s, s, dtype=torch.bool).tril(), float("-inf"))
+    assert (lse - torch.logsumexp(sc, -1) / math.log(2)).abs().max() < 1e-4
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = causal_attention(qq, kk, vv, 128, 128, mode, True)
+    assert out.grad_fn.name() == "_CausalAttentionBackward"
+    got = torch.autograd.grad(out, (qq, kk, vv), g)
+    for t, w in zip(got, want):
+        assert np.abs(_np(t) - w).max() <= BWD_TOL[dtype] * np.abs(w).max()
+
+
+#: (B, H, Hk, nb, U)
+COLUMN_GRIDS = [(1, 1, 1, 1, 1), (1, 2, 1, 3, 1), (2, 4, 2, 4, 3),
+                (1, 8, 1, 5, 7), (3, 6, 3, 4, 13), (1, 8, 1, 7, 50),
+                (2, 2, 2, 6, 4), (1, 4, 1, 16, 40)]
+
+
+def _column_segments(b, h, hk, nb, u, mode):
+    """Each CTA's column segments: (cta, bhk, j, p0, p1), p the cell's
+    place in its column."""
+    bhk, bh, i, j, valid = kernel.column_grid(b, h, hk, nb, u, mode)
+    pos = ((bh % h) % (h // hk)) * (nb - j) + i - j
+    segs = []
+    for c in range(valid.shape[0]):
+        cur = None
+        for t in range(valid.shape[1]):
+            if not valid[c, t]:
+                continue
+            key = (int(bhk[c, t]), int(j[c, t]))
+            if cur is not None and tuple(cur[1:3]) == key:
+                cur[4] = int(pos[c, t])
+            else:
+                if cur is not None:
+                    segs.append(tuple(cur))
+                cur = [c, *key, int(pos[c, t]), int(pos[c, t])]
+        if cur is not None:
+            segs.append(tuple(cur))
+    return segs
+
+
+@pytest.mark.parametrize("b,h,hk,nb,u", COLUMN_GRIDS)
+@pytest.mark.parametrize("mode", MODES)
+def test_column_enumeration_covers_every_cell_once(b, h, hk, nb, u, mode):
+    """The dK/dV pass's cells: every (bh, i >= j) exactly once, a (b, kv
+    head)'s columns from key block nb - 1 down to 0, each column q head major
+    and i ascending; the mapped grid has exactly B·H·T(nb) cells, the box
+    B·H·nb², its extra cells discarded; and the pieces: at most two a CTA,
+    every cut column listed once by ``column_pieces`` with exactly the CTAs
+    and slots that hold it, in the column's order."""
+    grp = h // hk
+    bhk, bh, i, j, valid = kernel.column_grid(b, h, hk, nb, u, mode)
+    n_cells = kernel.stream_cells(b * h, nb, mode)
+    assert valid.shape == (-(-n_cells // u), u)
+    cells = list(zip(bh[valid].tolist(), i[valid].tolist(),
+                     j[valid].tolist()))
+    want = [(x * h + y * grp + g, r, c) for x in range(b) for y in range(hk)
+            for c in reversed(range(nb)) for g in range(grp)
+            for r in range(c, nb)]
+    assert cells == want
+    assert sorted(cells) == sorted((x, r, c) for x in range(b * h)
+                                   for r in range(nb) for c in range(r + 1))
+    assert bool((bhk[valid] == (bh[valid] // h) * hk
+                 + (bh[valid] % h) // grp).all())
+    assert int((~valid).sum()) == valid.numel() - len(want)
+    held = {}
+    for c, x, col, p0, p1 in _column_segments(b, h, hk, nb, u, mode):
+        if p0 == 0 and p1 == grp * (nb - col) - 1:
+            continue
+        slot = 0 if p0 > 0 else 1
+        assert (c, slot) not in held
+        held[(c, slot)] = (x, col, p0, p1)
+    listed = kernel.column_pieces(b, h, hk, nb, u, mode)
+    assert len({(x, col) for x, col, _ in listed}) == len(listed)
+    covered = set()
+    for x, col, pieces in listed:
+        assert len(pieces) >= 2
+        spans = [held[p] for p in pieces]
+        assert all(sp[:2] == (x, col) for sp in spans)
+        assert spans[0][2] == 0 and spans[-1][3] == grp * (nb - col) - 1
+        for a, z in zip(spans, spans[1:]):
+            assert z[2] == a[3] + 1
+        covered.update(pieces)
+    assert covered == set(held)
+
+
+def test_simt_shaped_backward_is_the_oracle_vjp():
+    """A call off the sm90 route (bf16 at block 64 here) keeps the plain
+    oracle's vjp: its gradients equal autograd through
+    ``causal_attention_ref`` bit for bit."""
+    qa, ka, va = _inputs(13, 1, 4, 2, 256, 64)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+               for a in (qa, ka, va))
+    g = torch.from_numpy(_inputs(14, 1, 4, 4, 256, 64)[0]).to(torch.bfloat16)
+    out = causal_attention(q, k, v, 64, 64, "mapped", True)
+    assert out.grad_fn.name() == "_CausalAttentionBackward"
+    got = torch.autograd.grad(out, (q, k, v), g)
+    ref = causal_attention_ref(q, k.repeat_interleave(2, 1),
+                               v.repeat_interleave(2, 1))
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def test_sm90_backward_raises_without_a_card(monkeypatch):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(15, 1, 2, 1, 256, 64))
+    o, lse = kernel.attention_plain(q, k, v, 128, "mapped", lse=True)
+    n0 = kernel.ATTN_BWD_LAUNCHES
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.launch_attention_backward(q, k, v, o, lse, o, "mapped")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel.launch_attention_backward(q, k, v, o, lse, o, "mapped")
+    with pytest.raises(ValueError, match="sm90 route"):
+        kernel.attention_plain(q, k, v, 64, "mapped", lse=True)
+    assert kernel.ATTN_BWD_LAUNCHES == n0
